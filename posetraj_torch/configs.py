@@ -176,3 +176,65 @@ class PipelineConfig:
     # Quirk Q3: the reference overrides user fps/motion args with hard-coded
     # (fps=6, motion=128, aug=0.02) right before the denoise loop.
     fidelity_time_ids_override: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class EDMConfig:
+    """EDM training-noise distribution and loss weighting (the reference's
+    constants: sigma_data 0.5, sigma in [0.002, 700], image_d 64, noise_d
+    32/64)."""
+
+    sigma_data: float = 0.5
+    min_value: float = 0.002
+    max_value: float = 700.0
+    image_d: int = 64
+    noise_d_low: int = 32
+    noise_d_high: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """EDM ControlNet training (stage-1 pretrain / stage-2 finetune).
+
+    Defaults mirror the reference's start_pretrain.sh: lr 1e-5 with 500
+    warmup steps, per-device batch 1, gradient accumulation 2, conditioning
+    dropout 0.1, EMA, the auxiliary single-frame spatial loss x0.5, gradient
+    checkpointing per (resnet, transformer) unit, 14 frames at 320x576.
+
+    Not in the port yet: `grads_bf16`, `adam_mu_bf16`, `grad_accum_dtype`
+    (memory options) and `encode_outside_step`. Setting any of them raises
+    NotImplementedError in the trainer.
+    """
+
+    learning_rate: float = 1e-5
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    adam_mu_bf16: bool = False
+    max_grad_norm: float = 1.0
+    gradient_accumulation_steps: int = 2
+    per_device_batch_size: int = 1
+    num_frames: int = 14
+    height: int = 320
+    width: int = 576
+    conditioning_dropout_prob: float = 0.1
+    noise_aug_strength: float = 0.02
+    use_spatial_loss: bool = True
+    spatial_loss_weight: float = 0.5
+    use_ema: bool = True
+    ema_decay: float = 0.9999
+    gradient_checkpointing: bool = True
+    # "unit" checkpoints each (resnet, transformer) unit inside the blocks,
+    # "block" whole blocks; the numbers are the same either way.
+    remat_granularity: str = "unit"
+    seed: int = 23123134
+    cam_mask_ratio: float = 0.5
+    cam_norm: bool = False
+    checkpointing_steps: int = 10000
+    checkpoints_total_limit: int = 2
+    lr_warmup_steps: int = 500
+    lr_scheduler: str = "constant"
+    grad_accum_dtype: Optional[str] = None
+    grads_bf16: bool = False
+    encode_outside_step: bool = False

@@ -10,7 +10,7 @@ import torch
 
 from posetraj_torch.configs import ControlNetConfig, HintEncoderConfig
 from posetraj_torch.core.init import Init
-from posetraj_torch.models.blocks import down_block, init_down_block, init_mid_block, mid_block
+from posetraj_torch.models.blocks import down_block, init_down_block, init_mid_block, maybe_checkpoint, mid_block
 from posetraj_torch.models.embeddings import init_timestep_embedding
 from posetraj_torch.models.unet import compute_embeddings
 from posetraj_torch.ops.primitives import conv2d, silu
@@ -89,11 +89,15 @@ def controlnet_forward(params: dict, cfg: ControlNetConfig, sample: torch.Tensor
                        encoder_hidden_states: torch.Tensor, added_time_ids: torch.Tensor,
                        controlnet_cond: Optional[torch.Tensor] = None, conditioning_scale: float = 1.0,
                        compute_dtype=torch.bfloat16,
-                       hint_embedding: Optional[torch.Tensor] = None) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+                       hint_embedding: Optional[torch.Tensor] = None,
+                       remat=False) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """Returns (down_block_residuals (12 for the 4-level config),
     mid_block_residual), each scaled by conditioning_scale. `hint_embedding`
-    skips the hint conv stack: the sampling loop computes it once."""
+    skips the hint conv stack: the sampling loop computes it once. remat:
+    False, True or "unit", as for unet_forward."""
     u = cfg.unet
+    units = remat == "unit"
+    blocks = bool(remat) and not units
     b, f, h, w, _ = sample.shape
     emb = compute_embeddings(params, u, timestep, added_time_ids, b, f, compute_dtype)
     context = encoder_hidden_states.to(compute_dtype).repeat_interleave(f, dim=0)
@@ -107,11 +111,17 @@ def controlnet_forward(params: dict, cfg: ControlNetConfig, sample: torch.Tensor
     indicator = torch.zeros((b, f), dtype=torch.float32, device=sample.device)
     skips: Tuple[torch.Tensor, ...] = (x,)
     for i, db_params in enumerate(params["down_blocks"]):
-        x, new_skips = down_block(db_params, x, emb, context if u.cross_attention_levels[i] else None, f,
-                                  u.num_attention_heads[i], indicator, compute_dtype=compute_dtype)
+        x, new_skips = maybe_checkpoint(
+            lambda xx, ee, cc, p=db_params, i=i: down_block(p, xx, ee, cc, f, u.num_attention_heads[i], indicator,
+                                                            compute_dtype=compute_dtype, remat_units=units),
+            blocks,
+        )(x, emb, context if u.cross_attention_levels[i] else None)
         skips = skips + new_skips
-    x = mid_block(params["mid_block"], x, emb, context, f, u.num_attention_heads[-1], indicator,
-                  compute_dtype=compute_dtype)
+    x = maybe_checkpoint(
+        lambda xx, ee, cc: mid_block(params["mid_block"], xx, ee, cc, f, u.num_attention_heads[-1], indicator,
+                                     compute_dtype=compute_dtype, remat_units=units),
+        blocks,
+    )(x, emb, context)
     down = tuple(conv2d(zc, s, compute_dtype=compute_dtype) * conditioning_scale
                  for zc, s in zip(params["controlnet_down_blocks"], skips))
     mid = conv2d(params["controlnet_mid_block"], x, compute_dtype=compute_dtype) * conditioning_scale

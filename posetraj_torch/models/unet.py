@@ -15,7 +15,15 @@ import torch
 
 from posetraj_torch.configs import UNetConfig
 from posetraj_torch.core.init import Init
-from posetraj_torch.models.blocks import down_block, init_down_block, init_mid_block, init_up_block, mid_block, up_block
+from posetraj_torch.models.blocks import (
+    down_block,
+    init_down_block,
+    init_mid_block,
+    init_up_block,
+    maybe_checkpoint,
+    mid_block,
+    up_block,
+)
 from posetraj_torch.models.embeddings import (
     init_timestep_embedding,
     sinusoidal_timestep_embedding,
@@ -76,11 +84,15 @@ def compute_embeddings(params: dict, cfg: UNetConfig, timestep, added_time_ids: 
 def unet_forward(params: dict, cfg: UNetConfig, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                  added_time_ids: torch.Tensor, down_block_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
                  mid_block_residual: Optional[torch.Tensor] = None,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16, remat=False) -> torch.Tensor:
     """sample (B, F, H, W, 8) channels-last (noisy latents ++ image latents);
     encoder_hidden_states (B, 1, cross_dim); added_time_ids (B, 3).
-    Returns (B, F, H, W, out_channels)."""
+    Returns (B, F, H, W, out_channels). remat: False, True (checkpoint
+    whole blocks) or "unit" (each (resnet, transformer) unit), the
+    reference's --gradient_checkpointing."""
     b, f, h, w, _ = sample.shape
+    units = remat == "unit"
+    blocks = bool(remat) and not units
     emb = compute_embeddings(params, cfg, timestep, added_time_ids, b, f, compute_dtype)
     context = encoder_hidden_states.to(compute_dtype).repeat_interleave(f, dim=0)
     x = conv2d(params["conv_in"], sample.reshape(b * f, h, w, sample.shape[-1]).to(compute_dtype),
@@ -89,16 +101,22 @@ def unet_forward(params: dict, cfg: UNetConfig, sample: torch.Tensor, timestep, 
 
     skips: Tuple[torch.Tensor, ...] = (x,)
     for i, db_params in enumerate(params["down_blocks"]):
-        x, new_skips = down_block(db_params, x, emb, context if cfg.cross_attention_levels[i] else None, f,
-                                  cfg.num_attention_heads[i], indicator, compute_dtype=compute_dtype)
+        x, new_skips = maybe_checkpoint(
+            lambda xx, ee, cc, p=db_params, i=i: down_block(p, xx, ee, cc, f, cfg.num_attention_heads[i], indicator,
+                                                            compute_dtype=compute_dtype, remat_units=units),
+            blocks,
+        )(x, emb, context if cfg.cross_attention_levels[i] else None)
         skips = skips + new_skips
         if down_block_residuals is not None and cfg.fidelity_residual_in_loop:
             skips = tuple(s + r.to(s.dtype) for s, r in zip(skips, down_block_residuals))
     if down_block_residuals is not None and not cfg.fidelity_residual_in_loop:
         skips = tuple(s + r.to(s.dtype) for s, r in zip(skips, down_block_residuals))
 
-    x = mid_block(params["mid_block"], x, emb, context, f, cfg.num_attention_heads[-1], indicator,
-                  compute_dtype=compute_dtype)
+    x = maybe_checkpoint(
+        lambda xx, ee, cc: mid_block(params["mid_block"], xx, ee, cc, f, cfg.num_attention_heads[-1], indicator,
+                                     compute_dtype=compute_dtype, remat_units=units),
+        blocks,
+    )(x, emb, context)
     if mid_block_residual is not None:
         x = x + mid_block_residual.to(x.dtype)
 
@@ -107,8 +125,11 @@ def unet_forward(params: dict, cfg: UNetConfig, sample: torch.Tensor, timestep, 
     n_res = cfg.layers_per_block + 1
     for i, ub_params in enumerate(params["up_blocks"]):
         block_skips, skips = skips[-n_res:], skips[:-n_res]
-        x = up_block(ub_params, x, block_skips, emb, context if rev_cross[i] else None, f, rev_heads[i], indicator,
-                     compute_dtype=compute_dtype)
+        x = maybe_checkpoint(
+            lambda xx, ss, ee, cc, p=ub_params, i=i: up_block(p, xx, ss, ee, cc, f, rev_heads[i], indicator,
+                                                              compute_dtype=compute_dtype, remat_units=units),
+            blocks,
+        )(x, block_skips, emb, context if rev_cross[i] else None)
 
     x = group_norm_silu(params["conv_norm_out"], x, eps=1e-5)
     x = conv2d(params["conv_out"], x, compute_dtype=compute_dtype)

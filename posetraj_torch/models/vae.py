@@ -94,6 +94,14 @@ def encode(params: dict, cfg: VAEConfig, x: torch.Tensor,
     return mean, logvar.clamp(-30.0, 20.0)
 
 
+def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, eps=None) -> torch.Tensor:
+    """DiagonalGaussianDistribution.sample() given a standard-normal draw
+    `eps` of mean's shape, or .mode() (the mean) for eps=None."""
+    if eps is None:
+        return mean
+    return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+
+
 def init_temporal_decoder(ini: Init, cfg: VAEConfig) -> dict:
     boc = cfg.block_out_channels
     n = len(boc)

@@ -8,6 +8,13 @@ reused. `build_all()` starts one `nvcc` per source, all at once.
 
 Every wrapper counts its launches in `LAUNCHES[name]`: one per call that
 launched its kernel on the card, none for a call that ran the plain version.
+The flash library counts its forward and its backward apart (`flash_fwd`,
+`flash_bwd`).
+
+A launcher writes into fresh outputs that autograd knows nothing of, so
+`check_cuda` refuses a tensor that requires grad while grad mode is on: a
+gradient goes through the module's `torch.autograd.Function`, never around
+it.
 """
 
 from __future__ import annotations
@@ -23,13 +30,14 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("groupnorm", "mlp", "qkvt", "temporal")
+KERNELS = ("groupnorm", "mlp", "qkvt", "temporal", "flash")
+COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -112,10 +120,10 @@ L = ctypes.c_longlong
 Fl = ctypes.c_float
 
 
-def call(name: str, fn: str, argtypes, *args) -> None:
+def call(name: str, fn: str, argtypes, *args, count: str = "") -> None:
     """Call one C entry point of a kernel library on PyTorch's current
     stream (the stream is passed last) and raise if it reports a CUDA error.
-    Counts one launch of `name`."""
+    Counts one launch of `count`, by default of `name`."""
     import torch
 
     lib = library(name)
@@ -125,7 +133,7 @@ def call(name: str, fn: str, argtypes, *args) -> None:
     err = f(*args, P(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA error {err}: {lib.pt_error_string(err).decode()}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def ptr(t) -> P:
@@ -134,7 +142,15 @@ def ptr(t) -> P:
 
 def check_cuda(name: str, **tensors) -> None:
     """Raise unless every given tensor is a contiguous CUDA tensor whose
-    data pointer is 16-byte aligned (the kernels load 16 bytes at a time)."""
+    data pointer is 16-byte aligned (the kernels load 16 bytes at a time),
+    and, while grad mode is on, none requires grad."""
+    import torch
+
+    if torch.is_grad_enabled():
+        for key, t in tensors.items():
+            if t is not None and t.requires_grad:
+                raise RuntimeError(f"{name}: {key} requires grad; the raw kernel would cut the gradient. "
+                                   "Call the module's autograd wrapper.")
     for key, t in tensors.items():
         if t is None:
             continue

@@ -1,8 +1,12 @@
-"""Plain scaled-dot-product attention with a float32 softmax.
+"""Multi-head attention: the JAX package's dispatch (ops/attention.py:66-137).
 
-Port of posetraj_tpu/ops/attention.py:_xla_attention, the path CLIP (S=257)
-and the VAE's single-head attention (head_dim 512) take in the JAX package
-too. The spatial and temporal transformer sub-layers have their own kernels
+On the card, long sequences (S >= 512, at least as many keys as queries,
+head_dim 64 or 128) go to kernel 5, the differentiable flash attention of
+ops/flash.py; that is the path the training backward of kernel C takes.
+Everything else, and every CPU tensor, takes the plain float32-softmax
+`dot_product_attention` (port of _xla_attention): CLIP (S = 257), the VAE's
+single-head attention (head_dim 512) and cross-attention (one key). The
+spatial and temporal sub-layers' forwards have their own kernels
 (ops/qkvt.py, ops/temporal.py).
 """
 
@@ -11,6 +15,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from posetraj_torch.ops import flash
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -29,8 +35,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     hd = d // num_heads
     if scale is None:
         scale = hd**-0.5
-    out = dot_product_attention(
-        q.reshape(b, sq, num_heads, hd), k.reshape(b, skv, num_heads, hd),
-        v.reshape(b, skv, num_heads, hd), scale,
-    )
+    qh, kh, vh = (t.reshape(b, t.shape[1], num_heads, hd) for t in (q, k, v))
+    if flash.flash_applicable(q, skv, hd):
+        out = flash.flash_attention(qh, kh, vh, scale)
+    else:
+        out = dot_product_attention(qh, kh, vh, scale)
     return out.reshape(b, sq, d)

@@ -3,7 +3,9 @@
 Port of posetraj_tpu/ops/pallas_groupnorm.py:fused_group_norm. The CUDA
 kernel is posetraj_torch/csrc/groupnorm.cu; `group_norm_plain` is the same
 function in plain PyTorch. `group_norm` runs the plain version for a tensor
-on the CPU and launches the kernel for one on the card.
+on the CPU and launches the kernel for one on the card, through `GroupNorm`,
+its custom_vjp (_gn_fwd/_gn_bwd): the backward recomputes the plain version
+for the gradients of x, weight, bias and the addend.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 import torch
 
 from posetraj_torch.ops import _native
+from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "groupnorm"
 
@@ -47,12 +50,26 @@ def group_norm_plain(x, weight, bias, num_groups: int, eps: float, act: bool, ad
     return y.to(x.dtype)
 
 
+class GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, add, num_groups: int, eps: float, act: bool):
+        ctx.save_for_backward(x, weight, bias, add)
+        ctx.static = (num_groups, eps, act)
+        run = group_norm_kernel if x.is_cuda else group_norm_plain
+        return run(x, weight, bias, num_groups, eps, act, add)
+
+    @staticmethod
+    def backward(ctx, grad):
+        num_groups, eps, act = ctx.static
+        fn = lambda x, w, b, add: group_norm_plain(x, w, b, num_groups, eps, act, add)
+        return recompute_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:4], grad) + (None, None, None)
+
+
 def group_norm(x, weight, bias, num_groups: int, eps: float, act: bool, add=None) -> torch.Tensor:
     """(N, ..., C) GroupNorm. CPU tensor: the plain version. CUDA tensor:
-    kernel A, or an error if the kernel does not take the inputs."""
-    if not x.is_cuda:
-        return group_norm_plain(x, weight, bias, num_groups, eps, act, add)
-    return group_norm_kernel(x, weight, bias, num_groups, eps, act, add)
+    kernel A, or an error if the kernel does not take the inputs.
+    Differentiable in x, weight, bias and add."""
+    return GroupNorm.apply(x, weight, bias, add, num_groups, eps, act)
 
 
 def rows_per_block(n: int, s: int) -> int:

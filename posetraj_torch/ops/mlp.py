@@ -5,7 +5,8 @@ fused_geglu_mlp, fused_ln_geglu_mlp, fused_ln_geglu_mlp_res and
 fused_ln_geglu_mlp_res_add: all four are `geglu_mlp` here, selected by
 `ln_w` (LayerNorm prologue), `residual` and `add`. The CUDA kernel is
 posetraj_torch/csrc/mlp.cu; `geglu_mlp_plain` is the same function in plain
-PyTorch.
+PyTorch. `GegluMlp` is the custom_vjp of all four entry points: kernel
+forward, plain recompute backward, with a gradient for `add` too.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from posetraj_torch.ops import _native
+from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "mlp"
 
@@ -41,14 +43,29 @@ def geglu_mlp_plain(x, w1, b1, w2, b2, ln_w=None, ln_b=None, eps: float = 1e-5,
     return xa + out if residual else out
 
 
+class GegluMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ln_w, ln_b, add, eps: float, residual: bool):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ln_w, ln_b, add)
+        ctx.static = (eps, residual)
+        run = geglu_mlp_kernel if x.is_cuda else geglu_mlp_plain
+        return run(x, w1, b1, w2, b2, ln_w, ln_b, eps, residual, add)
+
+    @staticmethod
+    def backward(ctx, grad):
+        eps, residual = ctx.static
+        fn = lambda x, w1, b1, w2, b2, ln_w, ln_b, add: geglu_mlp_plain(x, w1, b1, w2, b2, ln_w, ln_b, eps,
+                                                                         residual, add)
+        return recompute_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:8], grad) + (None, None)
+
+
 def geglu_mlp(x, w1, b1, w2, b2, ln_w=None, ln_b=None, eps: float = 1e-5,
               residual: bool = False, add=None) -> torch.Tensor:
     """x (M, K); w1 (2N, K) [A rows | G rows]; b1 (2N,); w2 (K_out, N);
     b2 (K_out,); ln_w/ln_b (K,) or None; add (G, S_a, K) or None.
-    CPU tensor: the plain version. CUDA tensor: kernel B, or an error."""
-    if not x.is_cuda:
-        return geglu_mlp_plain(x, w1, b1, w2, b2, ln_w, ln_b, eps, residual, add)
-    return geglu_mlp_kernel(x, w1, b1, w2, b2, ln_w, ln_b, eps, residual, add)
+    CPU tensor: the plain version. CUDA tensor: kernel B, or an error.
+    Differentiable in every tensor argument."""
+    return GegluMlp.apply(x, w1, b1, w2, b2, ln_w, ln_b, add, eps, residual)
 
 
 def geglu_mlp_kernel(x, w1, b1, w2, b2, ln_w=None, ln_b=None, eps: float = 1e-5,

@@ -3,7 +3,10 @@
 Port of posetraj_tpu/ops/pallas_qkvt.py:attn_sublayer. The CUDA kernel is
 posetraj_torch/csrc/qkvt.cu (LN+QKV GEMM, flash attention, out-proj GEMM
 with the residual); `attn_sublayer_plain` is the same function in plain
-PyTorch.
+PyTorch, attention included. `AttnSublayer` is its custom_vjp
+(_asl_fwd/_asl_bwd): the forward runs the kernel on the card and saves its
+inputs, the backward recomputes `attn_sublayer_ref`, whose attention()
+reaches kernel 5 on the card.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from posetraj_torch.ops import _native
-from posetraj_torch.ops.attention import attention
+from posetraj_torch.ops.attention import attention, dot_product_attention
+from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "qkvt"
 HEAD_DIM = 64
@@ -22,28 +26,60 @@ HEAD_DIM = 64
 _PLAIN_LOGIT_BYTES = 2 << 30
 
 
+def _sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float, attend) -> torch.Tensor:
+    """LN in float32 cast to x.dtype, fused QKV projection, attend(q, k, v,
+    num_heads) over flat (B, S, C), out-projection plus bias plus residual."""
+    c = x.shape[-1]
+    h = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(), eps).to(x.dtype)
+    q, k, v = F.linear(h, wqkv).chunk(3, dim=-1)
+    return x + F.linear(attend(q, k, v, num_heads), wo, bo)
+
+
+def _plain_attention(q, k, v, num_heads: int) -> torch.Tensor:
+    b, s, c = q.shape
+    hd = c // num_heads
+    qh, kh, vh = (t.reshape(b, s, num_heads, hd) for t in (q, k, v))
+    return dot_product_attention(qh, kh, vh, hd**-0.5).reshape(b, s, c)
+
+
+def attn_sublayer_ref(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Reference formulation (pallas_qkvt._ref_attn_sublayer) through
+    attention(): kernel 5 on the card for S >= 512, float32-softmax
+    attention otherwise. The backward of kernel C recomputes it."""
+    return _sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps, attention)
+
+
 def attn_sublayer_plain(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """Reference formulation (pallas_qkvt._ref_attn_sublayer): LN in float32
-    cast to x.dtype, fused QKV projection, float32-softmax attention,
-    out-projection plus bias plus residual, in x.dtype."""
-    b, s, c = x.shape
-    per_sample = num_heads * s * s * 4
-    chunk = max(1, _PLAIN_LOGIT_BYTES // per_sample)
-    outs = []
-    for i in range(0, b, chunk):
-        xc = x[i : i + chunk]
-        h = F.layer_norm(xc.float(), (c,), ln_w.float(), ln_b.float(), eps).to(x.dtype)
-        q, k, v = F.linear(h, wqkv).chunk(3, dim=-1)
-        outs.append(xc + F.linear(attention(q, k, v, num_heads), wo, bo))
+    """The same function in plain PyTorch at every S (dot_product_attention,
+    never kernel 5), over chunks of the batch, so that the (batch, heads, S,
+    S) float32 logits stay near _PLAIN_LOGIT_BYTES."""
+    b, s, _ = x.shape
+    chunk = max(1, _PLAIN_LOGIT_BYTES // (num_heads * s * s * 4))
+    outs = [_sublayer(x[i : i + chunk], ln_w, ln_b, wqkv, wo, bo, num_heads, eps, _plain_attention)
+            for i in range(0, b, chunk)]
     return torch.cat(outs, dim=0)
+
+
+class AttnSublayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float):
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, wo, bo)
+        ctx.static = (num_heads, eps)
+        run = attn_sublayer_kernel if x.is_cuda else attn_sublayer_plain
+        return run(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        num_heads, eps = ctx.static
+        fn = lambda *a: attn_sublayer_ref(*a, num_heads, eps)
+        return recompute_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:6], grad) + (None, None)
 
 
 def attn_sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
     """x (B, S, C); wqkv (3C, C) = [Wq; Wk; Wv]; wo (C, C); bo (C,); ln
-    (C,). CPU tensor: the plain version. CUDA tensor: kernel C, or an error."""
-    if not x.is_cuda:
-        return attn_sublayer_plain(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
-    return attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
+    (C,). CPU tensor: the plain version. CUDA tensor: kernel C, or an error.
+    Differentiable in every tensor argument."""
+    return AttnSublayer.apply(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
 
 
 def attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:

@@ -4,7 +4,8 @@ x + to_out(frame_attention(LN(x))) over x (B, F, S, C).
 Port of posetraj_tpu/ops/pallas_temporal.py:temporal_attn_sublayer. The
 CUDA kernel is posetraj_torch/csrc/temporal.cu (LN+QKV GEMM, per-pixel frame
 attention, out-proj GEMM with the residual); `temporal_attn_sublayer_plain`
-is the same function in plain PyTorch.
+is the same function in plain PyTorch. `TemporalAttnSublayer` is its
+custom_vjp (_tas_fwd/_tas_bwd): kernel forward, plain recompute backward.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from posetraj_torch.ops import _native
+from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "temporal"
 HEAD_DIM = 64
@@ -43,12 +45,26 @@ def temporal_attn_sublayer_plain(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, ep
     return x + F.linear(frame_attention(q, k, v, num_heads), wo, bo)
 
 
+class TemporalAttnSublayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float):
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, wo, bo)
+        ctx.static = (num_heads, eps)
+        run = temporal_attn_sublayer_kernel if x.is_cuda else temporal_attn_sublayer_plain
+        return run(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        num_heads, eps = ctx.static
+        fn = lambda *a: temporal_attn_sublayer_plain(*a, num_heads, eps)
+        return recompute_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:6], grad) + (None, None)
+
+
 def temporal_attn_sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
     """x (B, F, S, C); wqkv (3C, C) = [Wq; Wk; Wv]; wo (C, C); bo (C,).
-    CPU tensor: the plain version. CUDA tensor: kernel D, or an error."""
-    if not x.is_cuda:
-        return temporal_attn_sublayer_plain(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
-    return temporal_attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
+    CPU tensor: the plain version. CUDA tensor: kernel D, or an error.
+    Differentiable in every tensor argument."""
+    return TemporalAttnSublayer.apply(x, ln_w, ln_b, wqkv, wo, bo, num_heads, eps)
 
 
 def temporal_attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
