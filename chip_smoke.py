@@ -4,10 +4,10 @@ in PERF.md): the quickest proof that the port builds and runs on the card,
 for inference and for training.
 
     python3 chip_smoke.py            # every phase, as the checks run it
-    python3 chip_smoke.py --steps 4  # fewer Euler steps in phase 4
+    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4 and 6
 
-Phases, one line of output each (more for phases 2 and 5):
-  1. the card (nvidia-smi name, power limit) and the build of the five CUDA
+Phases, one line of output each (more for phases 2, 5 and 6):
+  1. the card (nvidia-smi name, power limit) and the build of the six CUDA
      libraries from posetraj_torch/csrc, one nvcc per source, in parallel;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (and the 320x576 ones, whose S is ragged for the attention
@@ -18,7 +18,11 @@ Phases, one line of output each (more for phases 2 and 5):
      and, where one PyTorch call computes the same function, that call's
      time; kernel 5 (flash attention) forward (o, base-2 lse) and backward
      (dq, dk, dv) at the training shapes, a ragged, a rectangular and a
-     head_dim 128 case;
+     head_dim 128 case; kernel 7 (forward-only flash attention) at the
+     un-fused path's shapes and a ragged rectangular one; kernel 6 (packed
+     QKV, head_dim 128) with its lse and its gradient through
+     FlashAttentionQKV; kernel 8 (row LayerNorm) at three widths in bf16
+     and one in float32;
   3. one denoise step (ControlNet -> UNet, CFG batch) at full SVD width and
      14x576x1024, with the kernels and with the plain versions (attention()
      included), compared, and with uniform attention, to show the comparison
@@ -35,7 +39,14 @@ Phases, one line of output each (more for phases 2 and 5):
      optimizer updates): accumulation, EMA, frozen UNet, launches of every
      kernel, s/micro-step, s/optimizer step, peak memory; (d) one more
      micro-step under torch.profiler, grouped by kernel;
-  6. a `kernels` summary, the JSON line of kernel numbers, and the last line
+  6. inference at 14x320x576 under the un-fused KernelConfig (UNFUSED:
+     kernels 7 and 8, B without its LayerNorm, no C or D): (a) one denoise
+     step against the all-plain step and the default-config step, with
+     uniform kernel-7 attention, its launches against the prediction
+     (UNFUSED_PER_STEP) and its profile; (b) SVDControlNetPipeline with
+     ModelBundle(kernels=UNFUSED), two requests: s/request, s/denoise-step,
+     peak memory, launches per kernel against the prediction;
+  7. a `kernels` summary, the JSON line of kernel numbers, and the last line
      {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
 seed; the zero-initialised ControlNet heads get small random values so the
@@ -72,6 +83,9 @@ KERNEL_META = {
     "temporal": ("posetraj_torch/csrc/temporal.cu", "posetraj_tpu/ops/pallas_temporal.py:299"),
     "flash_fwd": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:439"),
     "flash_bwd": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:484"),
+    "flash_tq": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:183"),
+    "flash_qkv": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:655"),
+    "layernorm": ("posetraj_torch/csrc/layernorm.cu", "posetraj_tpu/ops/pallas_groupnorm.py:324"),
 }
 
 
@@ -130,7 +144,7 @@ def compare(got, want, tol: float, base=None, rms_tol=None):
 
 
 def check_kernels(torch, ops):
-    groupnorm, mlp, qkvt, temporal, flash = ops
+    groupnorm, mlp, qkvt, temporal, flash, layernorm = ops
     F = torch.nn.functional
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(device=dev)
@@ -345,6 +359,117 @@ def check_kernels(torch, ops):
             flash_rows["flash_bwd"]["max_abs_err"] = max(flash_rows["flash_bwd"]["max_abs_err"], err_b)
         del q, k, v, do, o, lse, o_ref, lse_ref, grads, want
     torch.cuda.empty_cache()
+
+    # 7: forward-only flash attention at the un-fused path's shapes (phase
+    # 6): the spatial self-attention of 14x320x576 at levels 0 and 1, B*F =
+    # 28, read in place from the q, k, v views of a packed (B, S, 3C)
+    # projection as self_attention_qkv splits it; then a ragged rectangular
+    # case (Sq 200, Skv 400). o within 3e-2 of the reference's max and 1e-2
+    # in rel RMS, as kernel 5's; logits of sd sqrt(ln(Skv/64)).
+    tol, rms_tol = 3e-2, 1e-2
+    for case, (bsz, sq, skv, heads) in enumerate(((28, 2880, 2880, 5), (28, 720, 720, 10), (4, 200, 400, 5))):
+        c, d = heads * 64, 64
+        sigma = max(1.0, np.log(skv / 64)) ** 0.5
+        if sq == skv:
+            qkv = rnd(bsz, sq, 3 * c)
+            qkv[..., : 2 * c] *= sigma**0.5
+            q, k, v = (t.unflatten(-1, (heads, d)) for t in qkv.split(c, dim=-1))
+        else:
+            q = rnd(bsz, sq, heads, d, scale=sigma**0.5)
+            k, v = rnd(bsz, skv, heads, d, scale=sigma**0.5), rnd(bsz, skv, heads, d)
+        scale = d**-0.5
+        run_k = lambda: flash.flash_attention_tq(q, k, v, scale)
+        run_p = lambda: flash.flash_attention_tq_plain(q, k, v, scale)
+        err, sc, rr, ok = compare(run_k(), run_p(), tol, rms_tol=rms_tol)
+        report("flash_tq", f"(B,Sq,Skv,N,d)=({bsz},{sq},{skv},{heads},{d}){' packed views' if sq == skv else ''}",
+               err, sc, rr, ok, tol, rms_tol)
+        if case == 0:
+            ms, plain = cuda_ms(run_k), cuda_ms(run_p, reps=3, inner=1)
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+            nbytes = 2 * (2 * bsz * sq * c + 2 * bsz * skv * c)
+            bnd, by = bound_ms(nbytes, 4.0 * bsz * heads * sq * skv * d, BF16_FLOPS)
+            rows.append(dict(name="flash_tq", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=lib))
+            del qs, ks, vs
+        else:
+            rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # 6: packed-QKV flash attention at head_dim 128 (no SVD configuration
+    # has it), timed at the level-0 width of 320x576 as 5 heads of 128, and
+    # a ragged S = 600: o and the base-2 lse against the plain version, and
+    # the gradient of qkv through FlashAttentionQKV (kernel 5's backward on
+    # the kernel's own o and lse) against the plain backward of the plain
+    # forward. Tolerances as kernel 5's.
+    tol, rms_tol, lse_tol = 3e-2, 1e-2, 2e-3
+    for case, (bsz, s, heads) in enumerate(((28, 2880, 5), (3, 600, 2))):
+        d = 128
+        c = heads * d
+        sigma = max(1.0, np.log(s / 64)) ** 0.5
+        qkv = rnd(bsz, s, 3 * c)
+        qkv[..., : 2 * c] *= sigma**0.5
+        scale = d**-0.5
+        o, lse = flash.flash_qkv_kernel(qkv, heads, scale)
+        o_ref, lse_ref = flash.flash_qkv_plain(qkv, heads, scale)
+        err_o, sc_o, rr_o, ok_o = compare(o, o_ref, tol, rms_tol=rms_tol)
+        err_l = float((lse - lse_ref).abs().max())
+        ok_l = err_l <= lse_tol
+        report("flash_qkv", f"(B,S,N,d)=({bsz},{s},{heads},{d}) o", err_o, sc_o, rr_o, ok_o, tol, rms_tol)
+        say(f"  {'flash_qkv':9s} {'':50s} lse max_abs_err={err_l:.3g} (tol {lse_tol:g}) {'ok' if ok_l else 'FAIL'}")
+        ok_all &= ok_l
+        do = rnd(bsz, s, c)
+        leaf = qkv.clone().requires_grad_(True)
+        flash.flash_attention_qkv(leaf, heads, scale).backward(do)
+        fold = lambda t: flash._fold(t.unflatten(-1, (heads, d)))
+        want = flash.flash_bwd_plain(*(fold(t) for t in qkv.split(c, dim=-1)), fold(o_ref),
+                                     lse_ref.reshape(bsz * heads, s), fold(do), scale)
+        for gname, got_g, want_g in zip(("dq", "dk", "dv"), leaf.grad.split(c, dim=-1), want):
+            err, sc, rr, ok = compare(got_g, flash._unfold(want_g, bsz).reshape(bsz, s, c), tol, rms_tol=rms_tol)
+            report("flash_qkv", f"(B,S,N,d)=({bsz},{s},{heads},{d}) {gname} via FlashAttentionQKV", err, sc, rr,
+                   ok, tol, rms_tol)
+        if case == 0:
+            run_k = lambda: flash.flash_qkv_kernel(qkv, heads, scale)
+            ms, plain = cuda_ms(run_k), cuda_ms(lambda: flash.flash_qkv_plain(qkv, heads, scale), reps=3, inner=1)
+            qs, ks, vs = (t.unflatten(-1, (heads, d)).transpose(1, 2).contiguous() for t in qkv.split(c, dim=-1))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+            nbytes = 2 * (3 * bsz * s * c + bsz * s * c) + 4 * bsz * heads * s
+            bnd, by = bound_ms(nbytes, 4.0 * bsz * heads * s * s * d, BF16_FLOPS)
+            rows.append(dict(name="flash_qkv", max_abs_err=err_o, ms=ms, plain_ms=plain, bound_ms=bnd,
+                             bound_by=by, library_ms=lib))
+            del qs, ks, vs
+        else:
+            rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err_o)
+        del qkv, o, lse, o_ref, lse_ref, do, leaf, want
+    torch.cuda.empty_cache()
+
+    # 8: row LayerNorm at the un-fused path's three widths (rows B*F*S of
+    # 14x320x576 at levels 0-2) in bf16, and level 1 in float32. x has a
+    # mean of 0.5 beside its unit spread, so a kernel that took E[x^2] -
+    # mean^2 in float32 would lose digits; bf16: max error within 1e-2 of
+    # the reference's max (one bf16 rounding apart) and rel RMS within 2e-3;
+    # float32: 1e-5 and 1e-6 (summation order).
+    for case, (m, c, dtype) in enumerate(((28 * 2880, 320, bf), (28 * 720, 640, bf), (28 * 180, 1280, bf),
+                                          (28 * 720, 640, torch.float32))):
+        tol, rms_tol = (1e-2, 2e-3) if dtype == bf else (1e-5, 1e-6)
+        x = rnd(m, c, dtype=dtype) + 0.5
+        w, b = ln_params(c)
+        run_k = lambda: layernorm.layer_norm_kernel(x, w, b, 1e-5)
+        run_p = lambda: layernorm.layer_norm_plain(x, w, b, 1e-5)
+        err, sc, rr, ok = compare(run_k(), run_p(), tol, rms_tol=rms_tol)
+        report("layernorm", f"({m},{c}) {str(dtype).replace('torch.', '')}", err, sc, rr, ok, tol, rms_tol)
+        if case == 0:
+            ms, plain = cuda_ms(run_k, reps=7, inner=10), cuda_ms(run_p)
+            wb, bb = w.to(dtype), b.to(dtype)
+            lib = cuda_ms(lambda: F.layer_norm(x, (c,), wb, bb, 1e-5), reps=7, inner=10)
+            bnd, by = bound_ms(2 * m * c * x.element_size() + 2 * 4 * c, 8.0 * m * c, FP32_FLOPS)
+            rows.append(dict(name="layernorm", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=lib))
+        else:
+            rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+        del x
+    torch.cuda.empty_cache()
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         say(f"  {r['name']:9s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -367,14 +492,18 @@ def patched(*replacements):
 
 
 def plain_versions(ops):
-    """Routes the model's kernel wrappers A-D to their plain versions,
-    autograd through plain PyTorch included (the reference of phases 3 and
-    5). No other attention() call of the model qualifies for kernel 5; the
-    callers check that the plain runs launch nothing."""
-    groupnorm, mlp, qkvt, temporal = ops[:4]
+    """Routes the model's kernel wrappers to their plain versions, autograd
+    through plain PyTorch included (the reference of phases 3, 5 and 6): A-D,
+    kernels 6 and 7 and kernel 8. No other attention() call of the model
+    qualifies for kernel 5; the callers check that the plain runs launch
+    nothing."""
+    groupnorm, mlp, qkvt, temporal, flash, layernorm = ops
     return patched((groupnorm, "group_norm", groupnorm.group_norm_plain), (mlp, "geglu_mlp", mlp.geglu_mlp_plain),
                    (qkvt, "attn_sublayer", qkvt.attn_sublayer_plain),
-                   (temporal, "temporal_attn_sublayer", temporal.temporal_attn_sublayer_plain))
+                   (temporal, "temporal_attn_sublayer", temporal.temporal_attn_sublayer_plain),
+                   (flash, "flash_attention_tq", flash.flash_attention_tq_plain),
+                   (flash, "flash_attention_qkv", lambda qkv, n, scale: flash.flash_qkv_plain(qkv, n, scale)[0]),
+                   (layernorm, "layer_norm", layernorm.layer_norm_plain))
 
 
 def uniform_attention(ops):
@@ -393,6 +522,14 @@ def uniform_attention(ops):
 
     return patched((qkvt, "attn_sublayer", without_queries(qkvt.attn_sublayer)),
                    (temporal, "temporal_attn_sublayer", without_queries(temporal.temporal_attn_sublayer)))
+
+
+def uniform_flash_tq(ops):
+    """Zeroes q in every call of kernel 7: the un-fused path's spatial
+    self-attention at levels 0 and 1 weighs all keys alike."""
+    flash = ops[4]
+    real = flash.flash_attention_tq
+    return patched((flash, "flash_attention_tq", lambda q, k, v, scale: real(q.new_zeros(q.shape), k, v, scale)),)
 
 
 # Wq and Wk of every self-attention are scaled by this factor. The fan-in
@@ -436,8 +573,9 @@ def make_params(torch, bundle, seed):
 def _kernel_group(name: str) -> str:
     """The group of a device kernel's name in the step profile."""
     low = name.lower()
-    for key, group in (("gn_", "A groupnorm (port)"), ("mlp_kernel", "B mlp (port)"),
-                       ("flash_fwd<", "5 flash attention fwd (port)"), ("flash_bwd", "5 flash attention bwd (port)"),
+    for key, group in (("gn_", "A groupnorm (port)"), ("mlp_kernel", "B mlp (port)"), ("ln_rows", "8 LayerNorm (port)"),
+                       ("flash_fwd<", "5/6/7 flash attention fwd (port)"),
+                       ("flash_bwd", "5 flash attention bwd (port)"),
                        ("flash_delta", "5 flash attention bwd (port)"),
                        ("flash_fwd", "C flash attention (port)"), ("frame_attn", "D frame attention (port)"),
                        ("gemm_kernel", "C/D projection GEMMs (port)"), ("row_stats", "C/D projection GEMMs (port)")):
@@ -475,20 +613,23 @@ def profile_step(torch, step):
     return wall_ms, dict(groups)
 
 
-def step_check(torch, ops, native, bundle, params):
-    """One ControlNet -> UNet step on the CFG batch: kernels vs plain, kernels
-    with uniform attention, and the warm kernel step under the profiler."""
+def step_check(torch, ops, native, bundle, params, height, width, cfg, uniform, other=None):
+    """One ControlNet -> UNet step on the CFG batch at 14 x height x width
+    under KernelConfig `cfg`: kernels vs plain, kernels with `uniform`
+    attention, the warm kernel step under the profiler, and, if `other` (a
+    KernelConfig) is given, the same step under it."""
+    from posetraj_torch.configs import use_kernels
     from posetraj_torch.models import controlnet as cn
     from posetraj_torch.models import unet as unet_m
 
     dt = torch.bfloat16
     g = torch.Generator(device="cuda")
     g.manual_seed(99)
-    f, h, w = 14, 72, 128
+    f, h, w = 14, height // 8, width // 8
     lat_in = torch.randn(2, f, h, w, 8, generator=g, device="cuda").to(dt)
     clip = torch.randn(2, 1, 1024, generator=g, device="cuda").to(dt)
     ids = torch.tensor([[6.0, 128.0, 0.02]] * 2, device="cuda")
-    control = (torch.rand(2, f, 576, 1024, 3, generator=g, device="cuda") * 2 - 1).to(dt)
+    control = (torch.rand(2, f, height, width, 3, generator=g, device="cuda") * 2 - 1).to(dt)
     t = torch.tensor(0.25 * 6.55, device="cuda")
     hint = cn.hint_encoder(params["controlnet"]["controlnet_cond_embedding"], bundle.controlnet.hint, control, f, dt)
 
@@ -497,33 +638,52 @@ def step_check(torch, ops, native, bundle, params):
                                           compute_dtype=dt, hint_embedding=hint)
         return unet_m.unet_forward(params["unet"], bundle.unet, lat_in, t, clip, ids, down, mid, compute_dtype=dt)
 
+    def rel_rms(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {}
     with torch.inference_mode():
-        native.reset_launches()
-        got = step().float()
-        torch.cuda.synchronize()
-        per_step = dict(native.LAUNCHES)
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        profile = profile_step(torch, step)
-        with uniform_attention(ops):
-            uniform = step().float()
-        native.reset_launches()
-        with plain_versions(ops):
-            want = step().float()
+        with use_kernels(cfg):
+            native.reset_launches()
+            got = step().float()
             torch.cuda.synchronize()
+            out["per_step"] = dict(native.LAUNCHES)
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-        plain_launches = sum(native.LAUNCHES.values())
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    rel_rms = float((got - want).norm() / want.norm())
-    attn_effect = float((uniform - got).norm() / got.norm())
-    return dict(err=err, scale=scale, rel_rms=rel_rms, attn_effect=attn_effect, finite=bool(torch.isfinite(got).all()),
-                per_step=per_step, step_s=step_s, plain_s=plain_s, plain_launches=plain_launches, profile=profile)
+            out["step_s"] = time.perf_counter() - t0
+            out["profile"] = profile_step(torch, step)
+            with uniform(ops):
+                out["attn_effect"] = rel_rms(step().float(), got)
+            native.reset_launches()
+            with plain_versions(ops):
+                want = step().float()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                out["plain_s"] = time.perf_counter() - t0
+            out["plain_launches"] = sum(native.LAUNCHES.values())
+        if other is not None:
+            with use_kernels(other):
+                out["other_rel_rms"] = rel_rms(got, step().float())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                out["other_s"] = time.perf_counter() - t0
+    out.update(err=float((got - want).abs().max()), scale=float(want.abs().max()), rel_rms=rel_rms(got, want),
+               finite=bool(torch.isfinite(got).all()))
+    return out
+
+
+def print_profile(label, profile):
+    wall_ms, groups = profile
+    device_ms = sum(v[0] for v in groups.values())
+    say(f"  {label}: wall {wall_ms:.1f} ms, device kernel time {device_ms:.1f} ms, busy share "
+        f"{device_ms / wall_ms:.3f}")
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        say(f"    {name:36s} {ms:9.2f} ms {n:6d} launches {ms / max(device_ms, 1e-9):7.1%}")
 
 
 def training_batch(torch, f, h, w, seed):
@@ -688,7 +848,7 @@ def train_check(torch, ops, native, bundle, params, f, h, w):
     return out
 
 
-def run_pipeline(torch, native, bundle, params, steps):
+def run_pipeline(torch, native, bundle, params, steps, height, width):
     from posetraj_torch.pipeline import SVDControlNetPipeline
     from posetraj_torch.pipeline import svd_controlnet as pipe_m
 
@@ -710,20 +870,91 @@ def run_pipeline(torch, native, bundle, params, steps):
         native.reset_launches()
         for seed in (0, 1):
             rng = np.random.RandomState(100 + seed)
-            image = rng.rand(1, 576, 1024, 3).astype(np.float32)
-            control = rng.rand(1, 14, 576, 1024, 3).astype(np.float32)
+            image = rng.rand(1, height, width, 3).astype(np.float32)
+            control = rng.rand(1, 14, height, width, 3).astype(np.float32)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs.append(pipe(image, control, height=576, width=1024, num_frames=14, num_inference_steps=steps,
+            outs.append(pipe(image, control, height=height, width=width, num_frames=14, num_inference_steps=steps,
                              seed=seed))
             req_s.append(time.perf_counter() - t0)
         launches = dict(native.LAUNCHES)
     return outs, req_s, denoise_s, launches, torch.cuda.max_memory_allocated()
 
 
+# The un-fused configuration of phase 6: spatial and temporal self-attention
+# outside kernels C and D, the FF's LayerNorm outside kernel B, and every
+# standalone LayerNorm in kernel 8.
+UNFUSED = dict(qkvt_attn=False, temporal_attn=False, fused_ff_ln=False, fused_ln=True)
+
+# Launches per denoise step under UNFUSED at 14x320x576 (ControlNet + UNet,
+# CFG batch B*F = 28), predicted from the code: 23 transformers (ControlNet
+# down 2+2+2 and mid 1, UNet down 2+2+2, mid 1, up 3+3+3 at levels 0-2);
+# latent levels of 40x72, 20x36, 10x18, 5x9 tokens (S = 2880, 720, 180, 45).
+#   flash_tq: spatial self-attention with S >= 512 (levels 0 and 1): 14.
+#   layernorm: five LayerNorms a transformer (spatial norm1 and norm3;
+#     temporal norm_in, norm1, norm3) where the rows 28*S reach 4096, i.e.
+#     levels 0-2, 21 transformers: 105. (The mid blocks' 28*45 = 1260 rows
+#     stay on PyTorch; norm2 is skipped before a one-token cross-attention.)
+#   qkvt, temporal, flash_fwd, flash_bwd, flash_qkv: 0.
+# CLIP (257 tokens) and the VAE (head_dim 512, no LayerNorm) add none.
+UNFUSED_PER_STEP = {"flash_tq": 14, "layernorm": 105, "qkvt": 0, "temporal": 0, "flash_fwd": 0, "flash_bwd": 0,
+                    "flash_qkv": 0}
+
+
+def un_fused_check(torch, ops, native, bundle, params, steps, card):
+    """Phase 6: one denoise step at 14x320x576 under UNFUSED against the
+    all-plain step, the default-config step and uniform kernel-7 attention,
+    with its launches and profile; then SVDControlNetPipeline for two
+    requests under ModelBundle(kernels=UNFUSED). Fails on any miss; returns
+    the pipeline run's launches."""
+    import dataclasses
+
+    from posetraj_torch.configs import KernelConfig
+
+    cfg = KernelConfig(**UNFUSED)
+    height, width = 320, 576
+    st = step_check(torch, ops, native, bundle, params, height, width, cfg, uniform_flash_tq, KernelConfig())
+    # Kernels against plain: bf16 rounding along the step, as in phase 3
+    # (3e-2 there). The default-config step rounds elsewhere again (kernels
+    # C, D and B with its LayerNorm), so it is held to the same limit.
+    rms_tol = 3e-2
+    launches_ok = all(st["per_step"][k] == n for k, n in UNFUSED_PER_STEP.items())
+    ok = (st["finite"] and st["rel_rms"] <= rms_tol and st["other_rel_rms"] <= rms_tol
+          and st["attn_effect"] > rms_tol and st["plain_launches"] == 0 and launches_ok)
+    say(f"phase 6: un-fused KernelConfig({', '.join(f'{k}={v}' for k, v in UNFUSED.items())}) at 14x{height}x{width} "
+        f"CFG on {card}")
+    say(f"  (a) one denoise step: vs all-plain max_abs_err={st['err']:.4g} (|ref|max {st['scale']:.3g}) "
+        f"rel_rms={st['rel_rms']:.4g} (tol {rms_tol:g}); vs the default-config step rel_rms="
+        f"{st['other_rel_rms']:.4g} (tol {rms_tol:g}); uniform kernel-7 attention rel_rms={st['attn_effect']:.4g} "
+        f"(must exceed {rms_tol:g}); launches/step={st['per_step']} (predicted {UNFUSED_PER_STEP}); step "
+        f"{st['step_s']:.3f} s (plain {st['plain_s']:.3f} s, {st['plain_launches']} launches; default config "
+        f"{st['other_s']:.3f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    print_profile(f"(a) profile of one un-fused step on {card}", st["profile"])
+    if not ok:
+        fail("the un-fused step disagrees, cannot see kernel 7, or launched other kernels than predicted")
+
+    outs, req_s, denoise_s, launches, peak = run_pipeline(
+        torch, native, dataclasses.replace(bundle, kernels=cfg), params, steps, height, width)
+    for out in outs:
+        if out.shape != (1, 14, height, width, 3):
+            fail(f"output shape {out.shape}")
+        if not (np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0):
+            fail("output not finite or outside [0, 1]")
+    n_steps = 2 * steps
+    per_step = {k: launches[k] / n_steps for k in launches}
+    ok = all(launches[k] == n * n_steps for k, n in UNFUSED_PER_STEP.items())
+    say(f"  (b) SVDControlNetPipeline, {steps} steps, 2 requests: s/request={[round(x, 3) for x in req_s]} "
+        f"s/denoise-step={[round(x / steps, 4) for x in denoise_s]} peak_mem={peak / 2**30:.2f} GiB "
+        f"launches={launches} per step={per_step} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the un-fused pipeline launched other kernels than predicted")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phase 4")
+    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4 and 6")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -733,12 +964,15 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke test runs on an NVIDIA GPU only")
     sys.path.insert(0, HERE)
     try:
-        from posetraj_torch.ops import _native, flash, groupnorm, mlp, qkvt, temporal
+        from posetraj_torch.configs import KernelConfig
+        from posetraj_torch.ops import _native, flash, groupnorm, layernorm, mlp, qkvt, temporal
         from posetraj_torch.pipeline import ModelBundle
     except ImportError as e:
         fail(f"cannot import posetraj_torch next to this script ({e})")
-    ops = (groupnorm, mlp, qkvt, temporal, flash)
+    ops = (groupnorm, mlp, qkvt, temporal, flash, layernorm)
     inference_kernels = ("groupnorm", "mlp", "qkvt", "temporal")
+    training_kernels = inference_kernels + ("flash_fwd", "flash_bwd")
+    off_default = ("flash_fwd", "flash_bwd", "flash_qkv", "flash_tq", "layernorm")
     t_start = time.perf_counter()
 
     # Phase 1
@@ -767,36 +1001,31 @@ def main() -> None:
     params = make_params(torch, bundle, args.seed)
     torch.cuda.synchronize()
     say(f"  full-width random parameters on the card in {time.perf_counter() - t0:.1f} s")
-    st = step_check(torch, ops, _native, bundle, params)
+    st = step_check(torch, ops, _native, bundle, params, 576, 1024, KernelConfig(), uniform_attention)
     # The step must agree with the plain step, and making the attention
     # uniform must move it by more than that tolerance: otherwise the check
     # could not see a fault in kernels C and D.
     step_tol, step_rms_tol = 5e-2, 3e-2
     step_ok = (st["finite"] and st["err"] <= step_tol * max(st["scale"], 1.0) and st["rel_rms"] <= step_rms_tol
-               and st["attn_effect"] > step_rms_tol and st["per_step"]["flash_fwd"] == 0
-               and st["per_step"]["flash_bwd"] == 0 and st["plain_launches"] == 0)
+               and st["attn_effect"] > step_rms_tol and not any(st["per_step"][k] for k in off_default)
+               and st["plain_launches"] == 0)
     say(f"phase 3: one denoise step 14x576x1024 CFG: max_abs_err={st['err']:.4g} (|ref|max {st['scale']:.3g}, "
         f"tol {step_tol:g}x) rel_rms={st['rel_rms']:.3g} (tol {step_rms_tol:g}) uniform-attention "
         f"rel_rms={st['attn_effect']:.3g} (must exceed {step_rms_tol:g}) launches/step={st['per_step']} "
         f"step {st['step_s']:.3f} s (plain {st['plain_s']:.3f} s, {st['plain_launches']} launches) "
         f"{'ok' if step_ok else 'FAIL'}")
-    wall_ms, groups = st["profile"]
-    device_ms = sum(v[0] for v in groups.values())
-    say(f"  profile of one kernel step on {card}: wall {wall_ms:.1f} ms, device kernel time {device_ms:.1f} ms, "
-        f"busy share {device_ms / wall_ms:.3f}")
-    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        say(f"    {name:36s} {ms:9.2f} ms {n:6d} launches {ms / max(device_ms, 1e-9):7.1%}")
+    print_profile(f"profile of one kernel step on {card}", st["profile"])
     if not step_ok:
         fail("the kernel step disagrees with the plain step, or cannot see the attention")
 
     # Phase 4
-    outs, req_s, denoise_s, launches, peak = run_pipeline(torch, _native, bundle, params, args.steps)
+    outs, req_s, denoise_s, launches, peak = run_pipeline(torch, _native, bundle, params, args.steps, 576, 1024)
     for out in outs:
         if out.shape != (1, 14, 576, 1024, 3):
             fail(f"output shape {out.shape}")
         if not (np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0):
             fail("output not finite or outside [0, 1]")
-    if any(launches[k] == 0 for k in inference_kernels) or launches["flash_fwd"] or launches["flash_bwd"]:
+    if any(launches[k] == 0 for k in inference_kernels) or any(launches[k] for k in off_default):
         fail(f"inference launched a kernel it should not, or missed one: {launches}")
     say(f"phase 4: SVDControlNetPipeline 14x576x1024 CFG, {args.steps} steps, 2 requests on {card}: "
         f"s/request={[round(s, 3) for s in req_s]} s/denoise-step={[round(s / args.steps, 4) for s in denoise_s]} "
@@ -843,7 +1072,7 @@ def main() -> None:
               and st4[1]["ema_equal"] and not st4[3]["ema_equal"] and st4[3]["ema_lag_err"] <= 1e-5
               and tr["unet_unchanged"] and not tr["graph_in_down"] and tr["down_calls"] > 0)
     tl = tr["launches"]
-    launch_ok = all(tl[k] > 0 for k in _native.COUNTERS)
+    launch_ok = all(tl[k] > 0 for k in training_kernels)
     micro_s = [m["s"] for m in st4]
     say(f"  (c) Trainer.step x4: accumulation/EMA {'ok' if acc_ok else 'FAIL'}, UNet unchanged "
         f"{tr['unet_unchanged']}, graph in UNet down/mid {tr['graph_in_down']} ({tr['down_calls']} calls), "
@@ -852,18 +1081,18 @@ def main() -> None:
         f"peak_mem={tr['peak_gib']:.2f} GiB on {card}")
     if not (acc_ok and launch_ok):
         fail("the train steps broke accumulation, EMA, the frozen UNet, or missed a kernel")
-    wall_ms, groups = tr["profile"]
-    device_ms = sum(v[0] for v in groups.values())
-    say(f"  (d) profile of one micro-step on {card}: wall {wall_ms:.1f} ms, device kernel time {device_ms:.1f} ms, "
-        f"busy share {device_ms / wall_ms:.3f}")
-    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        say(f"    {name:36s} {ms:9.2f} ms {n:6d} launches {ms / max(device_ms, 1e-9):7.1%}")
+    print_profile(f"(d) profile of one micro-step on {card}", tr["profile"])
+    torch.cuda.empty_cache()
 
-    # Phase 6: inference kernels count phase 4's run, kernel 5 phase 5(c)'s.
+    # Phase 6: inference at 14x320x576 under the un-fused KernelConfig.
+    un = un_fused_check(torch, ops, _native, bundle, params, args.steps, card)
+
+    # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's.
     say("kernels: " + " ".join(f"{k}=pass" for k in _native.COUNTERS))
     for r in rows:
         src, replaces = KERNEL_META[r["name"]]
-        n = launches[r["name"]] if r["name"] in inference_kernels else tl[r["name"]]
+        name = r["name"]
+        n = launches[name] if name in inference_kernels else tl[name] if name in training_kernels else un[name]
         r.update(route="cuda", source=src, replaces=replaces, launches=n)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -2,14 +2,80 @@
 
 The port's own copies of the model, scheduler and pipeline configurations,
 with the same fields, defaults and `tiny()` constructors as the JAX package's
-`configs.py`. Frozen dataclasses, so a configuration is hashable and safe to
-share between calls.
+`configs.py`, and of its kernel-dispatch switches (`KernelConfig`). Frozen
+dataclasses, so a configuration is hashable and safe to share between calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """Which hand-written kernels the model layer may dispatch to: the same
+    eight switches, defaults and POSETRAJ_* variables as the JAX package's
+    KernelConfig. A True means "may dispatch"; each site's gate also checks
+    the device and the shape. Scope an explicit config with `use_kernels()`
+    (`ModelBundle.kernels` inside `generate()`); outside any scope,
+    `from_env()` seeds it. The environment is read here and nowhere in ops/.
+    """
+
+    qkvt_attn: bool = True        # spatial self-attention sub-layer (kernel C)
+    temporal_attn: bool = True    # temporal self-attention sub-layer (kernel D)
+    fused_ff: bool = True         # GEGLU MLP (kernel B)
+    fused_ff_wide: bool = True    # ...including K > 640 (the 1280-wide levels)
+    fused_ff_ln: bool = True      # fold the pre-FF LayerNorm into kernel B
+    fused_groupnorm: bool = True  # GroupNorm(+SiLU) (kernel A); >= 2^28 elements take it anyway
+    fused_ln: bool = False        # standalone row LayerNorm (kernel 8)
+    # A TPU softmax lever: the JAX kernels may skip the running max, which
+    # changes nothing while the logits stay in range. It selects nothing on
+    # the card, where every attention kernel subtracts the running max; the
+    # field is kept so that one config means the same in both packages.
+    attn_no_max: bool = True
+
+    @classmethod
+    def from_env(cls) -> "KernelConfig":
+        """POSETRAJ_<NAME>=0 turns a switch off, any other value on; unset
+        keeps the default (so POSETRAJ_FUSED_LN=1 opts in)."""
+        kw = {}
+        for field in dataclasses.fields(cls):
+            v = os.environ.get(f"POSETRAJ_{field.name.upper()}")
+            if v is not None:
+                kw[field.name] = v != "0"
+        return cls(**kw)
+
+
+_ACTIVE_KERNELS: Optional[KernelConfig] = None
+
+
+def kernel_config() -> KernelConfig:
+    """The innermost `use_kernels()` scope's config, else
+    `KernelConfig.from_env()` read now."""
+    return _ACTIVE_KERNELS if _ACTIVE_KERNELS is not None else KernelConfig.from_env()
+
+
+class use_kernels:
+    """Context manager that makes `cfg` the active KernelConfig;
+    `use_kernels(None)` keeps the enclosing scope (or the environment)."""
+
+    def __init__(self, cfg: Optional[KernelConfig]):
+        self._cfg = cfg
+        self._prev: Optional[KernelConfig] = None
+
+    def __enter__(self):
+        global _ACTIVE_KERNELS
+        self._prev = _ACTIVE_KERNELS
+        if self._cfg is not None:
+            _ACTIVE_KERNELS = self._cfg
+        return self._cfg
+
+    def __exit__(self, *exc):
+        global _ACTIVE_KERNELS
+        _ACTIVE_KERNELS = self._prev
+        return False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,31 +1,44 @@
-// Kernel 5: differentiable flash attention over head-folded q (BN, Sq, d),
-// k and v (BN, Skv, d), bf16, d in {64, 128}:
-//   forward  o = softmax(q k^T * scale) v, and per query row the base-2
-//            log-sum-exp lse = m + log2(l) of the logits scaled by
-//            scale * log2(e) (float32, (BN, Sq));
+// Flash attention over bf16 operands with head_dim d in {64, 128}, three
+// Pallas kernels in one file:
+//   forward  o = softmax(q k^T * scale) v and, where asked for, per query row
+//            the base-2 log-sum-exp lse = m + log2(l) of the logits scaled by
+//            scale * log2(e) (float32, (B, N, Sq) = (BN, Sq) head-folded);
 //   backward delta = rowsum(o * do) (float32), then
 //            p = exp2(q k^T * scale * log2(e) - lse), ds = p * (do v^T - delta),
 //            dq = ds k * scale, dk = ds^T q * scale, dv = p^T do.
 //
-// Replaces posetraj_tpu/ops/pallas_attention.py:flash_attention_diff:
-// _flash_fwd_lse (_flash_kernel_tq_lse), and the two kernels of _flash_bwd
-// (_flash_bwd_dq_kernel, _flash_bwd_dkv_kernel). The TPU forward works on a
-// transposed (d, bq) layout for its lane rule; here every operand stays
-// row-major (rows of d contiguous bf16), which is what ldmatrix wants.
+// One forward kernel serves three Pallas entry points of
+// posetraj_tpu/ops/pallas_attention.py; it reads q, k, v and writes o by
+// (batch, head, row) strides with the head_dim axis contiguous:
+//   kernel 5  flash_attention_diff: _flash_fwd_lse (_flash_kernel_tq_lse),
+//             head-folded (BN, S, d) operands, lse written; its backward
+//             replaces _flash_bwd (_flash_bwd_dq_kernel, _flash_bwd_dkv_kernel);
+//   kernel 6  flash_attention_qkv: _flash_qkv_fwd_impl (_flash_kernel_qkv),
+//             per-head tiles read straight out of the packed (B, S, 3C)
+//             projection (row stride 3C, q/k/v at column offsets 0, C, 2C,
+//             head h at h * d), o written as (B, S, C), lse written;
+//   kernel 7  flash_attention_tq and flash_attention (_flash_kernel_tq,
+//             _flash_kernel): (B, Sq, N, d) q and (B, Skv, N, d) k, v read
+//             in place (split views of a packed projection too), o written as
+//             (B, Sq, N, d), no lse. The two Pallas variants differ only in
+//             the TPU layout of their accumulator.
+// The TPU kernels work on transposed (d, bq) tiles for their lane rule; here
+// every tile stays row-major (rows of d contiguous bf16), which is what
+// ldmatrix wants.
 //
 // Bound on the H100: operations. The forward does 4*Sq*Skv*d and the
-// backward 10*Sq*Skv*d multiply-adds per fold against O((Sq + Skv) * d)
-// bytes; the (Sq, Skv) logits and probabilities live only in registers.
-// Design: one block of 8 warps per 128 rows (queries for the forward and
-// dq, keys for dk/dv); each warp owns 16 rows and loops over tiles of the
-// other side, double-buffered in shared memory by cp.async. Products are
-// mma.sync m16n8k16 (bf16 operands, float32 accumulators); an accumulator
-// (logits, probabilities, ds) becomes the A operand of the next product in
-// registers (mma.cuh). P and dS are rounded to bf16 for their products, as
-// the forward rounds P for P @ V. dk/dv are summed by the block that owns
-// the keys, so no atomics. Ragged edges: keys >= Skv get p = 0 in the
-// forward and dq; query rows >= Sq get p = 0 in dk/dv, so padded rows add
-// nothing; rows past the end are zero-filled on load and never stored.
+// backward 10*Sq*Skv*d multiply-adds per (batch, head) against
+// O((Sq + Skv) * d) bytes; the (Sq, Skv) logits and probabilities live only
+// in registers. Design: one block of 8 warps per 128 rows (queries for the
+// forward and dq, keys for dk/dv); each warp owns 16 rows and loops over
+// tiles of the other side, double-buffered in shared memory by cp.async.
+// Products are mma.sync m16n8k16 (bf16 operands, float32 accumulators); an
+// accumulator (logits, probabilities, ds) becomes the A operand of the next
+// product in registers (mma.cuh). P and dS are rounded to bf16 for their
+// products, as the forward rounds P for P @ V. dk/dv are summed by the block
+// that owns the keys, so no atomics. Ragged edges: keys >= Skv get p = 0 in
+// the forward and dq; query rows >= Sq get p = 0 in dk/dv, so padded rows
+// add nothing; rows past the end are zero-filled on load and never stored.
 // wgmma and TMA are the work of a later change.
 
 #include "common.cuh"
@@ -45,17 +58,25 @@ struct Tile {
   static constexpr size_t kDkvSmem = sizeof(bf16) * (2 * kRows + 4 * kCols) * kLd + sizeof(float) * 4 * kCols;
 };
 
-// Rows [row0, row0 + rows) of an (S, HD) bf16 matrix into smem with row
-// stride HD + 8, by cp.async; rows past S are zero-filled.
+// Rows [row0, row0 + rows) of an (S, HD) bf16 matrix whose rows lie `ld`
+// elements apart into smem with row stride HD + 8, by cp.async; rows past S
+// are zero-filled.
 template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t row0, int rows, int64_t s) {
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t row0, int rows, int64_t s,
+                                          int64_t ld = HD) {
   constexpr int kV = HD / 8;
   for (int v = threadIdx.x; v < rows * kV; v += blockDim.x) {
     const int r = v / kV, cv = v % kV;
     const bool valid = row0 + r < s;
-    cp_async16(dst + r * (HD + 8) + cv * 8, src + (valid ? (row0 + r) * HD + cv * 8 : 0), valid);
+    cp_async16(dst + r * (HD + 8) + cv * 8, src + (valid ? (row0 + r) * ld + cv * 8 : 0), valid);
   }
 }
+
+// Element strides of an operand addressed by (batch, head, row); the
+// head_dim axis is contiguous.
+struct Layout {
+  int64_t batch, head, row;
+};
 
 // S = A B^T for one warp: 16 rows of A (registers, HD/16 k-chunks) against
 // the kCols rows of a [n][k] smem tile.
@@ -94,31 +115,35 @@ __device__ __forceinline__ void acc_times_tile(float (*out)[4], float (*p)[4], c
 }
 
 // Stores the warp's 16 x HD accumulator times `mul` as bf16 rows
-// [r0, r0 + 16) of an (S, HD) matrix; rows >= s are skipped.
+// [r0, r0 + 16) of an (S, HD) matrix whose rows lie `ld` elements apart;
+// rows >= s are skipped.
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4], int64_t r0, int64_t s, float mul_lo,
-                                           float mul_hi) {
+                                           float mul_hi, int64_t ld = HD) {
   const int lane = threadIdx.x & 31, g = lane / 4, t = lane % 4;
   const int64_t lo = r0 + g, hi = lo + 8;
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (lo < s)
-      *reinterpret_cast<__nv_bfloat162*>(dst + lo * HD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dst + lo * ld + col) =
           __floats2bfloat162_rn(acc[dt][0] * mul_lo, acc[dt][1] * mul_lo);
     if (hi < s)
-      *reinterpret_cast<__nv_bfloat162*>(dst + hi * HD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dst + hi * ld + col) =
           __floats2bfloat162_rn(acc[dt][2] * mul_hi, acc[dt][3] * mul_hi);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Forward: o and the base-2 lse. Grid (ceil(Sq / 128), BN).
+// Forward: o and, if lse is not null, the base-2 lse. Grid (ceil(Sq / 128),
+// B * heads); block (x, y) owns queries [128 x, 128 x + 128) of batch
+// y / heads, head y % heads.
 // ---------------------------------------------------------------------------
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                                                         float* __restrict__ lse, int64_t sq, int64_t skv, float c) {
+                                                         float* __restrict__ lse, Layout lq, Layout lk, Layout lv,
+                                                         Layout lout, int heads, int64_t sq, int64_t skv, float c) {
   constexpr int kLd = HD + 8, kN = Tile<HD>::kCols;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -127,15 +152,16 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd(const bf16* __restrict_
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int64_t bn = blockIdx.y, q0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const bf16* qb = q + bn * sq * HD;
-  const bf16* kb = k + bn * skv * HD;
-  const bf16* vb = v + bn * skv * HD;
+  const int64_t batch = bn / heads, head = bn % heads;
+  const bf16* qb = q + batch * lq.batch + head * lq.head;
+  const bf16* kb = k + batch * lk.batch + head * lk.head;
+  const bf16* vb = v + batch * lv.batch + head * lv.head;
   const int n_tiles = static_cast<int>((skv + kN - 1) / kN);
   const int qr = warp * 16;
 
-  load_rows<HD>(Qs, qb, q0, kRows, sq);
-  load_rows<HD>(Ks, kb, 0, kN, skv);
-  load_rows<HD>(Vs, vb, 0, kN, skv);
+  load_rows<HD>(Qs, qb, q0, kRows, sq, lq.row);
+  load_rows<HD>(Ks, kb, 0, kN, skv, lk.row);
+  load_rows<HD>(Vs, vb, 0, kN, skv, lv.row);
   cp_async_commit();
 
   uint32_t qa[HD / 16][4];
@@ -148,8 +174,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd(const bf16* __restrict_
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_rows<HD>(Ks + (buf ^ 1) * kN * kLd, kb, static_cast<int64_t>(j + 1) * kN, kN, skv);
-      load_rows<HD>(Vs + (buf ^ 1) * kN * kLd, vb, static_cast<int64_t>(j + 1) * kN, kN, skv);
+      load_rows<HD>(Ks + (buf ^ 1) * kN * kLd, kb, static_cast<int64_t>(j + 1) * kN, kN, skv, lk.row);
+      load_rows<HD>(Vs + (buf ^ 1) * kN * kLd, vb, static_cast<int64_t>(j + 1) * kN, kN, skv, lv.row);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -218,8 +244,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd(const bf16* __restrict_
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
   const int64_t row0 = q0 + qr;
-  store_rows<HD>(o + bn * sq * HD, oacc, row0, sq, 1.f / l_lo, 1.f / l_hi);
-  if (t == 0) {
+  store_rows<HD>(o + batch * lout.batch + head * lout.head, oacc, row0, sq, 1.f / l_lo, 1.f / l_hi, lout.row);
+  if (lse != nullptr && t == 0) {
     if (row0 + g < sq) lse[bn * sq + row0 + g] = m_lo + log2f(l_lo);
     if (row0 + g + 8 < sq) lse[bn * sq + row0 + g + 8] = m_hi + log2f(l_hi);
   }
@@ -440,15 +466,15 @@ __global__ void __launch_bounds__(kWarps * 32)
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int64_t bn, int64_t sq,
-               int64_t skv, float scale, cudaStream_t st) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, Layout lq, Layout lk, Layout lv,
+               Layout lout, int64_t b, int heads, int64_t sq, int64_t skv, float scale, cudaStream_t st) {
   constexpr size_t smem = Tile<HD>::kFwdSmem;
   int err = set_smem(reinterpret_cast<const void*>(flash_fwd<HD>), smem);
   if (err) return err;
-  dim3 grid(static_cast<unsigned>((sq + kRows - 1) / kRows), static_cast<unsigned>(bn));
+  dim3 grid(static_cast<unsigned>((sq + kRows - 1) / kRows), static_cast<unsigned>(b * heads));
   flash_fwd<HD><<<grid, kWarps * 32, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                                 static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, skv,
-                                                 scale * kLog2e);
+                                                 static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, lq, lk,
+                                                 lv, lout, heads, sq, skv, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,13 +510,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 }  // namespace
 
-// q (BN, Sq, hd), k, v (BN, Skv, hd), o (BN, Sq, hd) bf16; lse (BN, Sq)
-// float32 out. hd is 64 or 128.
-PT_EXPORT int pt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, long long bn,
-                           long long sq, long long skv, int hd, float scale, void* stream) {
+// The forward of kernels 5, 6 and 7. q (B, Sq, heads, hd), k, v (B, Skv,
+// heads, hd) and o (B, Sq, heads, hd) bf16, each given by its (batch, head,
+// row) element strides (s*[0], s*[1], s*[2]) with hd contiguous; lse
+// (B * heads, Sq) float32 out, or null for none. hd is 64 or 128.
+PT_EXPORT int pt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
+                           int heads, long long sq, long long skv, int hd, float scale, const long long* sq_strides,
+                           const long long* sk_strides, const long long* sv_strides, const long long* so_strides,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_fwd<64>(q, k, v, o, lse, bn, sq, skv, scale, st);
-  if (hd == 128) return launch_fwd<128>(q, k, v, o, lse, bn, sq, skv, scale, st);
+  const Layout lq{sq_strides[0], sq_strides[1], sq_strides[2]}, lk{sk_strides[0], sk_strides[1], sk_strides[2]},
+      lv{sv_strides[0], sv_strides[1], sv_strides[2]}, lo{so_strides[0], so_strides[1], so_strides[2]};
+  if (hd == 64) return launch_fwd<64>(q, k, v, o, lse, lq, lk, lv, lo, b, heads, sq, skv, scale, st);
+  if (hd == 128) return launch_fwd<128>(q, k, v, o, lse, lq, lk, lv, lo, b, heads, sq, skv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

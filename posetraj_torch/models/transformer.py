@@ -2,10 +2,18 @@
 (diffusers 0.24.0 attention.py / transformer_temporal.py).
 
 Shapes: spatial tokens (B*F, H*W, C); temporal blocks work on (B, F, S, C)
-without the (B*S, F, C) transpose. The three sub-layers with kernels:
-  * spatial self-attention  -> ops/qkvt.attn_sublayer          (kernel C)
-  * temporal self-attention -> ops/temporal.temporal_attn_sublayer (kernel D)
-  * every GEGLU feed-forward -> ops/mlp.geglu_mlp             (kernel B)
+without the (B*S, F, C) transpose. The sub-layers follow the JAX package's
+dispatch under the active KernelConfig (configs.kernel_config):
+  * spatial self-attention: kernel C (ops/qkvt.attn_sublayer) under
+    qkvt_attn; else LayerNorm + attention_module (the packed projection,
+    ops/attention.self_attention_qkv: kernel 7, or 6 at head_dim 128)
+  * temporal self-attention: kernel D (ops/temporal.temporal_attn_sublayer)
+    under temporal_attn; else LayerNorm + _frame_axis_attention
+  * every GEGLU feed-forward: kernel B (ops/mlp.geglu_mlp) with the
+    LayerNorm, residual and addend folded in under fused_ff_ln; else a
+    standalone LayerNorm and kernel B without it; plain GEGLU when fused_ff
+    is off or kernel B's gate declines
+  * every standalone LayerNorm: kernel 8 under fused_ln (ops/primitives.layer_norm)
 
 Quirk Q7 (diffusers 0.24.0): the temporal cross-attention context is built
 sequence-major while the hidden rows are batch-major, so for the CFG batch of
@@ -18,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from posetraj_torch.configs import kernel_config
 from posetraj_torch.core.init import Init
 from posetraj_torch.models.embeddings import (
     init_timestep_embedding,
@@ -26,8 +35,8 @@ from posetraj_torch.models.embeddings import (
 )
 from posetraj_torch.models.resnet import alpha_blend
 from posetraj_torch.ops import mlp, qkvt, temporal
-from posetraj_torch.ops.attention import attention
-from posetraj_torch.ops.primitives import group_norm_silu, layer_norm, linear
+from posetraj_torch.ops.attention import attention, self_attention_qkv
+from posetraj_torch.ops.primitives import geglu, group_norm_silu, layer_norm, linear
 
 
 def init_attention(ini: Init, query_dim: int, heads: int, cross_attention_dim: Optional[int] = None) -> dict:
@@ -41,6 +50,15 @@ def init_attention(ini: Init, query_dim: int, heads: int, cross_attention_dim: O
         "to_v": ini.linear(cross_attention_dim, query_dim, bias=False),
         "to_out": ini.linear(query_dim, query_dim),
     }
+
+
+def attention_module(params: dict, x: torch.Tensor, num_heads: int, compute_dtype=None) -> torch.Tensor:
+    """Self-attention of (B, S, C) x: the packed projection x Wqkv^T (a
+    plain matmul, as the JAX package leaves it to XLA), self_attention_qkv,
+    to_out."""
+    dt = compute_dtype or x.dtype
+    qkv = linear({"weight": params["wqkv"]}, x, dt)
+    return linear(params["to_out"], self_attention_qkv(qkv, num_heads), compute_dtype)
 
 
 def cross_attention(params: dict, x: torch.Tensor, context: torch.Tensor, num_heads: int,
@@ -63,27 +81,36 @@ def init_feed_forward(ini: Init, dim: int, mult: int = 4) -> dict:
 
 def feed_forward(params: dict, x: torch.Tensor, norm: dict, add: Optional[torch.Tensor] = None,
                  compute_dtype=None) -> torch.Tensor:
-    """The pre-norm GEGLU FF sub-layer xa + ff(LN(xa)), xa = x [+ add], in
-    kernel B. add: a broadcast vector whose residual add is folded into the
-    kernel, canonicalised to (G, S_a, C): axes before its last size-1 axis are
+    """The pre-norm GEGLU FF sub-layer xa + ff(LN(xa)), xa = x [+ add]. add:
+    a broadcast vector; under fused_ff_ln kernel B folds its residual add,
+    canonicalised to (G, S_a, C): axes before its last size-1 axis are
     groups, axes after it the shared inner extent ((B*F, 1, C) -> (G, 1, C);
-    (B, 1, S, C) -> (B, S, C))."""
+    (B, 1, S, C) -> (B, S, C)). Elsewhere it is added explicitly."""
     dt = compute_dtype or x.dtype
     c = x.shape[-1]
-    add3 = None
+    w1, w2 = params["proj_in"]["weight"], params["proj_out"]["weight"]
+    if mlp.geglu_applicable(w1, w2):
+        args = (w1.to(dt), params["proj_in"]["bias"].to(dt), w2.to(dt), params["proj_out"]["bias"].to(dt))
+        if kernel_config().fused_ff_ln:
+            add3 = None
+            if add is not None:
+                ones = [i for i, d in enumerate(add.shape[:-1]) if d == 1]
+                cut = ones[-1] if ones else add.ndim - 1
+                g = 1
+                for d in add.shape[:cut]:
+                    g *= d
+                add3 = add.reshape(g, -1, c).to(dt).contiguous()
+            out = mlp.geglu_mlp(x.reshape(-1, c).to(dt), *args, norm["weight"], norm["bias"], 1e-5, residual=True,
+                                add=add3)
+            return out.reshape(x.shape)
+        if add is not None:
+            x = x + add.to(x.dtype)
+        h = layer_norm(norm, x.reshape(-1, c).to(dt)).to(dt)
+        return x + mlp.geglu_mlp(h, *args).reshape(x.shape)
     if add is not None:
-        ones = [i for i, d in enumerate(add.shape[:-1]) if d == 1]
-        cut = ones[-1] if ones else add.ndim - 1
-        g = 1
-        for d in add.shape[:cut]:
-            g *= d
-        add3 = add.reshape(g, -1, c).to(dt).contiguous()
-    out = mlp.geglu_mlp(
-        x.reshape(-1, c).to(dt), params["proj_in"]["weight"].to(dt), params["proj_in"]["bias"].to(dt),
-        params["proj_out"]["weight"].to(dt), params["proj_out"]["bias"].to(dt),
-        norm["weight"], norm["bias"], 1e-5, residual=True, add=add3,
-    )
-    return out.reshape(x.shape)
+        x = x + add.to(x.dtype)
+    out = linear(params["proj_out"], geglu(params["proj_in"], layer_norm(norm, x), compute_dtype), compute_dtype)
+    return x + out
 
 
 def init_basic_transformer_block(ini: Init, dim: int, num_heads: int, cross_attention_dim: Optional[int]) -> dict:
@@ -101,17 +128,23 @@ def init_basic_transformer_block(ini: Init, dim: int, num_heads: int, cross_atte
 
 def basic_transformer_block(params: dict, x: torch.Tensor, num_heads: int, context: Optional[torch.Tensor] = None,
                             compute_dtype=None) -> torch.Tensor:
-    """(B*F, S, C) -> same: self-attention sub-layer (kernel C), cross-
-    attention, FF sub-layer (kernel B)."""
+    """(B*F, S, C) -> same: self-attention sub-layer, cross-attention, FF
+    sub-layer."""
     dt = compute_dtype or x.dtype
     a1 = params["attn1"]
-    x = qkvt.attn_sublayer(
-        x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
-        a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
-    )
+    if kernel_config().qkvt_attn:
+        x = qkvt.attn_sublayer(
+            x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
+            a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
+        )
+    else:
+        x = x + attention_module(a1, layer_norm(params["norm1"], x), num_heads, compute_dtype)
     add = None
     if "attn2" in params:
-        att = cross_attention(params["attn2"], layer_norm(params["norm2"], x), context, num_heads, compute_dtype)
+        # A cross-attention over one context token never reads its queries:
+        # norm2 is computed only for a longer context.
+        h = x if context.shape[1] == 1 else layer_norm(params["norm2"], x)
+        att = cross_attention(params["attn2"], h, context, num_heads, compute_dtype)
         if att.shape != x.shape:
             add = att  # single-token broadcast (B*F, 1, C), folded into the FF
         else:
@@ -133,6 +166,15 @@ def init_temporal_basic_transformer_block(ini: Init, dim: int, num_heads: int,
         p["norm2"] = ini.norm(dim)
         p["attn2"] = init_attention(ini, dim, num_heads, cross_attention_dim)
     return p
+
+
+def _frame_axis_attention(params: dict, x: torch.Tensor, num_heads: int, compute_dtype=None) -> torch.Tensor:
+    """Self-attention over the frame axis of (B, F, S, C) x, per pixel: the
+    packed projection, split, ops/temporal.frame_attention, to_out (the JAX
+    package's _frame_axis_attention; plain PyTorch, as it is XLA there)."""
+    dt = compute_dtype or x.dtype
+    q, k, v = linear({"weight": params["wqkv"]}, x, dt).chunk(3, dim=-1)
+    return linear(params["to_out"], temporal.frame_attention(q, k, v, num_heads), compute_dtype)
 
 
 def frame_cross_attention(params: dict, x: torch.Tensor, context: torch.Tensor, num_heads: int,
@@ -162,14 +204,17 @@ def temporal_basic_transformer_block(params: dict, x: torch.Tensor, num_frames: 
     x = feed_forward(params["ff_in"], x, params["norm_in"],
                      add.reshape(b, num_frames, 1, c) if add is not None else None, compute_dtype)
     a1 = params["attn1"]
-    x = temporal.temporal_attn_sublayer(
-        x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
-        a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
-    )
+    if kernel_config().temporal_attn:
+        x = temporal.temporal_attn_sublayer(
+            x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
+            a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
+        )
+    else:
+        x = x + _frame_axis_attention(a1, layer_norm(params["norm1"], x), num_heads, compute_dtype)
     add = None
     if "attn2" in params:
-        att = frame_cross_attention(params["attn2"], layer_norm(params["norm2"], x), context, num_heads,
-                                    compute_dtype)
+        h = x if context.shape[1] == 1 else layer_norm(params["norm2"], x)  # see basic_transformer_block
+        att = frame_cross_attention(params["attn2"], h, context, num_heads, compute_dtype)
         if att.shape != x.shape:
             add = att  # (B, 1, S, C), folded into the FF
         else:

@@ -8,8 +8,9 @@ reused. `build_all()` starts one `nvcc` per source, all at once.
 
 Every wrapper counts its launches in `LAUNCHES[name]`: one per call that
 launched its kernel on the card, none for a call that ran the plain version.
-The flash library counts its forward and its backward apart (`flash_fwd`,
-`flash_bwd`).
+The flash library serves four counters: kernel 5's forward and backward
+(`flash_fwd`, `flash_bwd`), kernel 6 (`flash_qkv`) and kernel 7
+(`flash_tq`).
 
 A launcher writes into fresh outputs that autograd knows nothing of, so
 `check_cuda` refuses a tensor that requires grad while grad mode is on: a
@@ -30,8 +31,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("groupnorm", "mlp", "qkvt", "temporal", "flash")
-COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "flash_fwd", "flash_bwd")
+KERNELS = ("groupnorm", "mlp", "qkvt", "temporal", "flash", "layernorm")
+COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "flash_fwd", "flash_bwd", "flash_qkv", "flash_tq", "layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -118,6 +119,12 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 Fl = ctypes.c_float
+LP = ctypes.POINTER(ctypes.c_longlong)
+
+
+def longs(*values) -> ctypes.Array:
+    """A C array of long longs (for an LP argument)."""
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def call(name: str, fn: str, argtypes, *args, count: str = "") -> None:
@@ -140,10 +147,12 @@ def ptr(t) -> P:
     return P(t.data_ptr()) if t is not None else P(0)
 
 
-def check_cuda(name: str, **tensors) -> None:
+def check_cuda(name: str, strided: bool = False, **tensors) -> None:
     """Raise unless every given tensor is a contiguous CUDA tensor whose
     data pointer is 16-byte aligned (the kernels load 16 bytes at a time),
-    and, while grad mode is on, none requires grad."""
+    and, while grad mode is on, none requires grad. With strided=True a
+    tensor may be a view whose last axis is contiguous and whose other
+    strides are multiples of 16 bytes."""
     import torch
 
     if torch.is_grad_enabled():
@@ -156,7 +165,10 @@ def check_cuda(name: str, **tensors) -> None:
             continue
         if not t.is_cuda:
             raise ValueError(f"{name}: {key} is on {t.device}, expected a CUDA tensor")
-        if not t.is_contiguous():
+        if strided:
+            if t.stride(-1) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:-1]):
+                raise ValueError(f"{name}: {key} strides {t.stride()} need a contiguous last axis and 16-byte rows")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{name}: {key} data pointer is not 16-byte aligned")

@@ -7,6 +7,7 @@ fused_ln_geglu_mlp_res_add: all four are `geglu_mlp` here, selected by
 posetraj_torch/csrc/mlp.cu; `geglu_mlp_plain` is the same function in plain
 PyTorch. `GegluMlp` is the custom_vjp of all four entry points: kernel
 forward, plain recompute backward, with a gradient for `add` too.
+`geglu_applicable` is the dispatch gate of models/transformer.feed_forward.
 """
 
 from __future__ import annotations
@@ -14,10 +15,23 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from posetraj_torch.configs import kernel_config
 from posetraj_torch.ops import _native
 from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "mlp"
+MAX_K_OUT = 1280
+
+
+def geglu_applicable(w1: torch.Tensor, w2: torch.Tensor) -> bool:
+    """The JAX gate (pallas_mlp.fused_geglu_applicable): KernelConfig.fused_ff,
+    and fused_ff_wide for K > 640; within kernel B's own limits (K % 64,
+    N % 64, K_out % 16, K_out <= 1280) instead of the TPU's row and lane
+    rules. w1 (2N, K), w2 (K_out, N)."""
+    cfg = kernel_config()
+    k, n, k_out = w1.shape[1], w1.shape[0] // 2, w2.shape[0]
+    return (cfg.fused_ff and (k <= 640 or cfg.fused_ff_wide) and k % 64 == 0 and n % 64 == 0 and k_out % 16 == 0
+            and k_out <= MAX_K_OUT)
 
 
 def broadcast_add_rows(x: torch.Tensor, add: torch.Tensor) -> torch.Tensor:
@@ -75,7 +89,7 @@ def geglu_mlp_kernel(x, w1, b1, w2, b2, ln_w=None, ln_b=None, eps: float = 1e-5,
     k_out = w2.shape[0]
     if w1.shape != (2 * n, k) or w2.shape != (k_out, n) or b1.shape != (2 * n,) or b2.shape != (k_out,):
         raise ValueError("geglu_mlp kernel: weight shapes do not match")
-    if k % 64 or n % 64 or k_out % 16 or k_out > 1280:
+    if k % 64 or n % 64 or k_out % 16 or k_out > MAX_K_OUT:
         raise ValueError(f"geglu_mlp kernel: needs K%64==0, N%64==0, K_out%16==0, K_out<=1280 (K={k}, N={n}, K_out={k_out})")
     if residual and k_out != k:
         raise ValueError("geglu_mlp kernel: residual needs K_out == K")

@@ -20,7 +20,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from posetraj_torch.configs import kernel_config
 from posetraj_torch.ops import groupnorm as gn_kernel
+from posetraj_torch.ops import layernorm as ln_kernel
+
+# Activations this large take kernel A even with KernelConfig.fused_groupnorm
+# off (the JAX package's rule: its XLA GroupNorm cannot fit the VAE decode).
+GN_KERNEL_ALWAYS = 1 << 28
 
 
 def set_float32_precision() -> None:
@@ -90,7 +96,10 @@ def conv3d_temporal(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.
 
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last dim, statistics in float32, result in x's dtype."""
+    """LayerNorm over the last dim, statistics in float32, result in x's
+    dtype. Kernel 8 under KernelConfig.fused_ln where its gate admits x."""
+    if ln_kernel.fused_layer_norm_applicable(x):
+        return ln_kernel.layer_norm(x, params["weight"], params["bias"], eps)
     y = F.layer_norm(x.float(), x.shape[-1:], params["weight"].float(), params["bias"].float(), eps)
     return y.to(x.dtype)
 
@@ -124,9 +133,19 @@ def group_norm_silu(params: dict, x: torch.Tensor, num_groups: int = 32, eps: fl
     """GroupNorm over channels-last x (N, ..., C), statistics per sample over
     every non-batch dim, optionally followed by SiLU. add: optional (N, C)
     per-sample or (N, F, C) per-frame channel vector added to x before the
-    norm (the resnet time-embedding broadcast), folded into kernel A."""
+    norm (the resnet time-embedding broadcast), folded into kernel A.
+    With KernelConfig.fused_groupnorm off, activations under 2^28 elements
+    take the JAX package's XLA formulation instead: the add in x's dtype,
+    float32 statistics, SiLU after the cast back."""
     groups = _groups(x.shape[-1], num_groups)
-    return gn_kernel.group_norm(x, params["weight"], params["bias"], groups, eps, act, add)
+    if kernel_config().fused_groupnorm or x.numel() >= GN_KERNEL_ALWAYS:
+        return gn_kernel.group_norm(x, params["weight"], params["bias"], groups, eps, act, add)
+    if add is not None:
+        lead = add.shape[:-1]
+        x = x + add.reshape(*lead, *(1,) * (x.ndim - len(lead) - 1), add.shape[-1]).to(x.dtype)
+    y = F.group_norm(x.float().movedim(-1, 1), groups, params["weight"].float(), params["bias"].float(), eps)
+    y = y.movedim(1, -1).to(x.dtype)
+    return silu(y) if act else y
 
 
 def group_norm(params: dict, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:

@@ -10,7 +10,9 @@ All Gaussian draws can be injected through `noises=` for parity tests.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`. The
 compute dtype is an argument: by default bf16 on the card and float32 on the
-CPU, as the JAX package picks by backend.
+CPU, as the JAX package picks by backend. `generate()` runs under the
+bundle's KernelConfig (`ModelBundle.kernels`; None takes the POSETRAJ_*
+variables, read when the call starts).
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ import torch
 from posetraj_torch.configs import (
     CLIPVisionConfig,
     ControlNetConfig,
+    KernelConfig,
     PipelineConfig,
     SchedulerConfig,
     UNetConfig,
     VAEConfig,
+    use_kernels,
 )
 from posetraj_torch.core.init import default_compute_dtype, make_init, resolve_device
 from posetraj_torch.diffusion.euler_karras import euler_step, make_schedule
@@ -49,11 +53,22 @@ class ModelBundle:
     clip: CLIPVisionConfig = dataclasses.field(default_factory=CLIPVisionConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     fidelity_clip_unnormalized: bool = True  # Q8
+    # Kernel dispatch switches for every call made under this bundle;
+    # None = the POSETRAJ_* variables (KernelConfig.from_env).
+    kernels: Optional[KernelConfig] = None
 
     @classmethod
     def tiny(cls) -> "ModelBundle":
         return cls(unet=UNetConfig.tiny(), controlnet=ControlNetConfig.tiny(), vae=VAEConfig.tiny(),
                    clip=CLIPVisionConfig.tiny())
+
+
+def resolve_kernels(bundle: ModelBundle) -> ModelBundle:
+    """The bundle with its KernelConfig pinned: None becomes
+    KernelConfig.from_env() read now; an explicit config passes through."""
+    if bundle.kernels is None:
+        return dataclasses.replace(bundle, kernels=KernelConfig.from_env())
+    return bundle
 
 
 def init_params(bundle: ModelBundle, seed: int = 0, device=None, compute_dtype=None) -> Dict:
@@ -160,33 +175,35 @@ def generate(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, image, con
     image (B, H, W, 3) in [0, 1]; control_video (B, F, H, W, 3) in [0, 1];
     noises {"latents": (B, F, h, w, 4), "image_aug": (B, H, W, 3)} standard
     normal. Returns (B, F, H, W, 3) float32 in [0, 1], or the final latents
-    (B, F, h, w, 4) if output_latent. `params` must already be on `device`."""
-    device = resolve_device(device)
-    if device.type == "cuda":
-        set_float32_precision()
-    dt = compute_dtype or default_compute_dtype(device)
-    image = _as_tensor(image, device)
-    control_video = _as_tensor(control_video, device)
-    sigmas = _as_tensor(sigmas, device)
-    timesteps = _as_tensor(timesteps, device)
-    time_ids = _as_tensor(added_time_ids, device)
+    (B, F, h, w, 4) if output_latent. `params` must already be on `device`.
+    Runs under the bundle's KernelConfig (resolve_kernels)."""
+    with use_kernels(resolve_kernels(bundle).kernels):
+        device = resolve_device(device)
+        if device.type == "cuda":
+            set_float32_precision()
+        dt = compute_dtype or default_compute_dtype(device)
+        image = _as_tensor(image, device)
+        control_video = _as_tensor(control_video, device)
+        sigmas = _as_tensor(sigmas, device)
+        timesteps = _as_tensor(timesteps, device)
+        time_ids = _as_tensor(added_time_ids, device)
 
-    clip_emb = encode_image_clip(params, bundle, image, dt)
-    image_latents = encode_image_vae(params, bundle, image * 2.0 - 1.0, _as_tensor(noises["image_aug"], device),
-                                     pcfg.noise_aug_strength)
-    init_sigma = sigmas[0] if bundle.scheduler.timestep_spacing in ("linspace", "trailing") \
-        else torch.sqrt(sigmas[0] ** 2 + 1.0)
-    latents = _as_tensor(noises["latents"], device) * init_sigma
-    control = (control_video * 2.0 - 1.0).to(dt)
-    control = torch.cat([control, control], dim=0)
-    guidance = torch.linspace(pcfg.min_guidance_scale, pcfg.max_guidance_scale, num_frames, device=device)
-    time_ids = torch.cat([time_ids, time_ids], dim=0)
-    latents = denoise(params, bundle, pcfg, latents, image_latents, clip_emb, control, time_ids, sigmas, timesteps,
-                      guidance, dt)
-    if output_latent:
-        return latents
-    frames = decode_latents(params, bundle, latents, pcfg.decode_chunk_size, dt)
-    return (frames / 2.0 + 0.5).clamp(0.0, 1.0)
+        clip_emb = encode_image_clip(params, bundle, image, dt)
+        image_latents = encode_image_vae(params, bundle, image * 2.0 - 1.0, _as_tensor(noises["image_aug"], device),
+                                         pcfg.noise_aug_strength)
+        init_sigma = sigmas[0] if bundle.scheduler.timestep_spacing in ("linspace", "trailing") \
+            else torch.sqrt(sigmas[0] ** 2 + 1.0)
+        latents = _as_tensor(noises["latents"], device) * init_sigma
+        control = (control_video * 2.0 - 1.0).to(dt)
+        control = torch.cat([control, control], dim=0)
+        guidance = torch.linspace(pcfg.min_guidance_scale, pcfg.max_guidance_scale, num_frames, device=device)
+        time_ids = torch.cat([time_ids, time_ids], dim=0)
+        latents = denoise(params, bundle, pcfg, latents, image_latents, clip_emb, control, time_ids, sigmas, timesteps,
+                          guidance, dt)
+        if output_latent:
+            return latents
+        frames = decode_latents(params, bundle, latents, pcfg.decode_chunk_size, dt)
+        return (frames / 2.0 + 0.5).clamp(0.0, 1.0)
 
 
 class SVDControlNetPipeline:

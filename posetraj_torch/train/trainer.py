@@ -38,7 +38,7 @@ from typing import Dict, Optional
 
 import torch
 
-from posetraj_torch.configs import EDMConfig, TrainConfig
+from posetraj_torch.configs import EDMConfig, KernelConfig, TrainConfig, use_kernels
 from posetraj_torch.core.init import default_compute_dtype, resolve_device
 from posetraj_torch.core.params import ema_decay_schedule, ema_update, leaves
 from posetraj_torch.diffusion.edm import edm_loss_weight, edm_scalings, rand_cosine_interpolated
@@ -48,6 +48,7 @@ from posetraj_torch.models import unet as unet_m
 from posetraj_torch.models import vae as vae_m
 from posetraj_torch.ops.primitives import set_float32_precision
 from posetraj_torch.ops.resize import resize_antialias
+from posetraj_torch.pipeline.svd_controlnet import resolve_kernels
 
 
 def encode_image_clip_train(params: Dict, bundle, frame0_m11: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -276,7 +277,10 @@ class Trainer:
     `device` already (core/init.py, pipeline.init_params); the ControlNet is
     copied into float32 masters (and an EMA copy), the frozen weights are
     used as given. Runs on `cuda` unless device="cpu". The step's random
-    draws come from a generator seeded with tcfg.seed."""
+    draws come from a generator seeded with tcfg.seed. The bundle's
+    KernelConfig is pinned here (resolve_kernels) and scopes every step;
+    only the default one is in the port yet (kernel 8 has no backward, and
+    training under the un-fused switches is not ported)."""
 
     def __init__(self, bundle, tcfg: TrainConfig, frozen_params: Dict, controlnet_params: Dict, mesh=None,
                  device=None, compute_dtype=None):
@@ -284,6 +288,10 @@ class Trainer:
             raise NotImplementedError("Trainer(mesh=...): the parallel layer is not in the port yet")
         _check_supported(tcfg)
         self.device = resolve_device(device)
+        bundle = resolve_kernels(bundle)
+        if bundle.kernels != KernelConfig():
+            raise NotImplementedError(f"Trainer under {bundle.kernels}: only the default KernelConfig is in the "
+                                      "port yet")
         if self.device.type == "cuda":
             set_float32_precision()
         self.bundle = bundle
@@ -307,5 +315,6 @@ class Trainer:
         sf = self.bundle.vae.scale_factor
         randoms = draw_step_randoms(self.generator, b, f, (hh // sf, ww // sf, self.bundle.vae.latent_channels),
                                     self.device)
-        return train_step(self.state, self.frozen_params, self.bundle, self.tcfg, batch, randoms,
-                          self.compute_dtype)
+        with use_kernels(self.bundle.kernels):
+            return train_step(self.state, self.frozen_params, self.bundle, self.tcfg, batch, randoms,
+                              self.compute_dtype)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (A-D and the flash attention of kernel 5, forward
-and backward) against their plain PyTorch versions, on the card (bf16).
-Skipped without a GPU.
+"""The port's CUDA kernels (A-D, the flash attention of kernel 5 forward and
+backward, kernel 6's packed-QKV and kernel 7's forward-only flash attention,
+kernel 8's row LayerNorm) against their plain PyTorch versions, on the card
+(bf16, and float32 for kernel 8). Skipped without a GPU.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -15,6 +16,9 @@ RMS (a few bf16 roundings on the way; bf16 keeps 8 bits). Kernel 5: o, dq,
 dk and dv within 3e-2 of the reference's max and 1e-2 in relative RMS, the
 base-2 lse within 2e-3 absolute (float32 logits of bf16 inputs on both
 sides). A dq from a kernel that dropped log2(e) would be off by far more.
+Kernels 6 and 7 take kernel 5's tolerances. Kernel 8: within 1e-2 of the
+reference's max and 2e-3 rel RMS in bf16 (one rounding apart), 1e-5 and
+1e-6 in float32 (summation order).
 """
 
 import math
@@ -22,7 +26,7 @@ import math
 import pytest
 import torch
 
-from posetraj_torch.ops import _native, flash, groupnorm, mlp, qkvt, temporal
+from posetraj_torch.ops import _native, flash, groupnorm, layernorm, mlp, qkvt, temporal
 
 
 def _need_cuda():
@@ -163,3 +167,77 @@ def test_cuda_raw_launchers_refuse_tensors_that_require_grad(call):
         else:
             d = x.detach()
             flash.flash_bwd_kernel(d, d, d, d, torch.zeros(2, 64, device=dev), x, 0.125)
+
+
+# (B, Sq, Skv, N, d) for kernel 7: the packed-projection views at ragged
+# S = 200 and 600, a rectangular Skv = 2 Sq, d = 128.
+TQ_CASES = [(2, 200, 200, 5, 64), (2, 600, 600, 2, 64), (3, 200, 400, 2, 64), (2, 180, 180, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,n,d", TQ_CASES)
+def test_cuda_flash_tq_matches_plain(b, sq, skv, n, d):
+    """Kernel 7 on strided q, k, v views (split of a packed projection where
+    Sq == Skv) against the plain version; one launch counted per call."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sq + skv + d)
+    sigma = math.sqrt(max(1.0, math.log(skv / 64)))
+    c = n * d
+    if sq == skv:
+        qkv = (torch.randn(b, sq, 3 * c, generator=g, device="cuda") * sigma**0.5).to(torch.bfloat16)
+        q, k, v = (t.unflatten(-1, (n, d)) for t in qkv.split(c, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, skv, skv))
+    _native.reset_launches()
+    got = flash.flash_attention_tq(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["flash_tq"] == 1 and got.shape == (b, sq, n, d)
+    _check(got, flash.flash_attention_tq_plain(q, k, v, d**-0.5), 3e-2, rms_tol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n", [(2, 600, 2), (1, 200, 3)])
+def test_cuda_flash_qkv_matches_plain(b, s, n):
+    """Kernel 6 at head_dim 128: o and lse against the plain version, and
+    the gradient of qkv through FlashAttentionQKV against autograd of the
+    plain attention."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(s + n)
+    c, d = n * 128, 128
+    qkv = (torch.randn(b, s, 3 * c, generator=g, device="cuda") * 1.3).to(torch.bfloat16)
+    do = torch.randn(b, s, c, generator=g, device="cuda").to(torch.bfloat16)
+    o, lse = flash.flash_qkv_kernel(qkv, n, d**-0.5)
+    o_ref, lse_ref = flash.flash_qkv_plain(qkv, n, d**-0.5)
+    torch.cuda.synchronize()
+    _check(o, o_ref, 3e-2, rms_tol=1e-2)
+    assert float((lse - lse_ref).abs().max()) <= 2e-3
+    leaf = qkv.clone().requires_grad_(True)
+    _native.reset_launches()
+    flash.flash_attention_qkv(leaf, n, d**-0.5).backward(do)
+    assert _native.LAUNCHES["flash_qkv"] == 1 and _native.LAUNCHES["flash_bwd"] == 1
+    ref = qkv.float().requires_grad_(True)
+    q, k, v = (t.unflatten(-1, (n, d)) for t in ref.split(c, dim=-1))
+    torch.nn.functional.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                                                     ).transpose(1, 2).reshape(b, s, c).backward(do.float())
+    for got, want in zip(leaf.grad.split(c, dim=-1), ref.grad.split(c, dim=-1)):
+        _check(got, want, 3e-2, rms_tol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,dtype", [(4096, 320, torch.bfloat16), (1000, 640, torch.bfloat16),
+                                       (300, 1280, torch.bfloat16), (77, 2048, torch.float32),
+                                       (513, 136, torch.float32)])
+def test_cuda_layer_norm_matches_plain(m, c, dtype):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(m + c)
+    x = (torch.randn(m, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    w = torch.randn(c, generator=g, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=g, device="cuda") * 0.1
+    _native.reset_launches()
+    got = layernorm.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["layernorm"] == 1
+    tol, rms_tol = (1e-2, 2e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    _check(got, layernorm.layer_norm_plain(x, w, b, 1e-5), tol, rms_tol=rms_tol)
+    with pytest.raises(RuntimeError, match="fused_ln"):
+        layernorm.layer_norm(x, w.requires_grad_(True), b, 1e-5)

@@ -45,14 +45,15 @@ def _key(i):
     return jax.random.PRNGKey(i)
 
 
-def test_controlnet_unet_step_matches_jax():
+@pytest.fixture(scope="module")
+def step_case():
     """One composed ControlNet -> UNet step at the tiny config on a CFG batch
     of 2, with every zero conv randomised so the residual path (and the Q1
-    in-loop re-add) reaches the output."""
+    in-loop re-add) reaches the output: the JAX step's output (off the TPU
+    every kernel gate of the JAX package is closed, so it is the same under
+    any KernelConfig) and the port's parameters and inputs."""
     from posetraj_tpu.configs import ControlNetConfig as JCn, UNetConfig as JU
     from posetraj_tpu.models import controlnet as jcn, unet as ju
-    from posetraj_torch.configs import ControlNetConfig, UNetConfig
-    from posetraj_torch.models import controlnet as tcn, unet as tu
 
     ucfg, ccfg = JU.tiny(), JCn.tiny()
     up = ju.init_unet(_key(16), ucfg)
@@ -75,10 +76,26 @@ def test_controlnet_unet_step_matches_jax():
         return ju.unet_forward(up_, ucfg, sample_, t, ctx_, ids_, down, mid, compute_dtype=jnp.float32)
 
     want = jax.jit(jstep)(cp, up, *(jnp.asarray(a) for a in (sample, ctx, ids, cond)))
-    tcp, tup = params_from_jax(cp), params_from_jax(up)
-    down, mid = tcn.controlnet_forward(tcp, ControlNetConfig.tiny(), _t(sample), t, _t(ctx), _t(ids),
+    return {"cp": params_from_jax(cp), "up": params_from_jax(up), "inputs": (sample, t, ctx, ids, cond),
+            "want": np.asarray(want)}
+
+
+def port_step(case):
+    """The port's step on the case's parameters and inputs: (ControlNet's
+    first residual, output)."""
+    from posetraj_torch.configs import ControlNetConfig, UNetConfig
+    from posetraj_torch.models import controlnet as tcn, unet as tu
+
+    sample, t, ctx, ids, cond = case["inputs"]
+    down, mid = tcn.controlnet_forward(case["cp"], ControlNetConfig.tiny(), _t(sample), t, _t(ctx), _t(ids),
                                        controlnet_cond=_t(cond), compute_dtype=torch.float32)
-    got = tu.unet_forward(tup, UNetConfig.tiny(), _t(sample), t, _t(ctx), _t(ids), down, mid,
+    out = tu.unet_forward(case["up"], UNetConfig.tiny(), _t(sample), t, _t(ctx), _t(ids), down, mid,
                           compute_dtype=torch.float32)
-    assert float(np.abs(_np(down[0])).max()) > 0  # the residual path is live
-    _rel_close(got, want, 2e-4)
+    return down[0], out
+
+
+def test_controlnet_unet_step_matches_jax(step_case):
+    """The step under the default KernelConfig."""
+    down0, got = port_step(step_case)
+    assert float(np.abs(_np(down0)).max()) > 0  # the residual path is live
+    _rel_close(got, step_case["want"], 2e-4)

@@ -231,7 +231,7 @@ def _vjp_check(jfn, jargs, tfn, targs, relayout, ct):
     """jax.vjp of jfn at jargs against autograd of tfn at targs (leaves that
     need grad), with cotangent ct; relayout[i] maps JAX's gradient i to the
     port's layout."""
-    out, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in jargs))
+    out, vjp = jax.vjp(jax.jit(jfn), *(jnp.asarray(a) for a in jargs))
     want = vjp(jnp.asarray(ct))
     got = tfn(*targs)
     np.testing.assert_allclose(_np(got), np.asarray(out), atol=1e-4, rtol=1e-4)
@@ -278,7 +278,7 @@ def test_geglu_mlp_function_grads_match_jax_vjp(variant):
                              a if variant == "ln_res_add" else None)
 
     ct = _rand(14, m, k)
-    out, vjp = jax.vjp(j, *(jnp.asarray(a) for a in (x, ln_s, ln_b, w1, b1, w2, b2, add)))
+    out, vjp = jax.vjp(jax.jit(j), *(jnp.asarray(a) for a in (x, ln_s, ln_b, w1, b1, w2, b2, add)))
     want = vjp(jnp.asarray(ct))
     got = port(*targs)
     np.testing.assert_allclose(_np(got), np.asarray(out), atol=1e-4, rtol=1e-4)
@@ -452,13 +452,25 @@ def test_updates_at_default_adam_epsilon_match_optax(jax_steps, port_steps):
         updates, opt_state = tx.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), opt_state
 
-    params = {k: jnp.asarray(v) for k, v in init.items()}
+    # optax runs on the tree flattened into one vector: every update is
+    # element-wise and the clip reads the global norm, so it is the same
+    # function, compiled for one leaf instead of a few hundred.
+    keys = list(init)
+
+    def flat(tree):
+        return {"all": jnp.asarray(np.concatenate([np.asarray(tree[k], np.float32).ravel() for k in keys]))}
+
+    def unflat(tree):
+        parts = np.split(np.asarray(tree["all"]), np.cumsum([init[k].size for k in keys])[:-1])
+        return {k: p.reshape(init[k].shape) for k, p in zip(keys, parts)}
+
+    params = flat(init)
     ema, opt_state, want = params, tx.init(params), []
     for i, g in enumerate(micro):
-        params, opt_state = jstep({k: jnp.asarray(v) for k, v in g.items()}, opt_state, params)
+        params, opt_state = jstep(flat(g), opt_state, params)
         if i % 2 == 1:
             ema = jema(ema, params, jdecay((i + 1) // 2, jcfg.ema_decay))
-            want.append(({k: np.asarray(v) for k, v in params.items()}, {k: np.asarray(v) for k, v in ema.items()}))
+            want.append((unflat(params), unflat(ema)))
 
     tcfg = TrainConfig(**kw)
     masters = {k: _t(v, True) for k, v in init.items()}
