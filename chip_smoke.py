@@ -9,6 +9,8 @@ for inference and for training.
 Phases, one line of output each (more for phases 2, 5 and 6):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
      libraries from posetraj_torch/csrc, one nvcc per source, in parallel;
+     the count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+     flash library's SASS, which must both be above 0;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (and the 320x576 ones, whose S is ragged for the attention
      tiles), bf16, with its error against the stated tolerance (for the
@@ -16,7 +18,10 @@ Phases, one line of output each (more for phases 2, 5 and 6):
      residual term), its median time, the plain version's, the bound (bytes
      over 3.35 TB/s or operations over the dense peak, whichever is larger)
      and, where one PyTorch call computes the same function, that call's
-     time; kernel 5 (flash attention) forward (o, base-2 lse) and backward
+     time (none for B, C, D: no one call computes the sub-layer; C's
+     attention core, the shared flash forward on C's scratch, and D's frame
+     attention are timed alone beside SDPA instead); kernel 5 (flash
+     attention) forward (o, base-2 lse) and backward
      (dq, dk, dv) at the training shapes, a ragged, a rectangular and a
      head_dim 128 case; kernel 7 (forward-only flash attention) at the
      un-fused path's shapes and a ragged rectangular one; kernel 6 (packed
@@ -117,6 +122,22 @@ def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
     return statistics.median(times)
 
 
+def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
+    """Mean device milliseconds per call of the kernels whose name holds
+    `key`, over `calls` warm calls of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum((ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total)
+                for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.name)
+    return total / calls / 1e3
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -166,7 +187,7 @@ def check_kernels(torch, ops):
         wqkv[: 2 * c] *= sigma**0.5
         return (rnd(*shape, scale=0.1), *ln_params(c), wqkv, rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), c // 64)
 
-    rows, ok_all = [], True
+    rows, cores, ok_all = [], [], True
 
     def report(name, label, err, scale, rel_rms, ok, tol, rms_tol=None, branch=False):
         nonlocal ok_all
@@ -254,20 +275,40 @@ def check_kernels(torch, ops):
         report("qkvt", f"(B,S,C)=({bsz},{s},{c}) heads={c // 64} logit sd {sigma:.2f}", err, scale, rel_rms, ok,
                tol, rms_tol, branch=True)
         if level == 0:
-            heads = c // 64
             ms, plain = cuda_ms(run_k, reps=3, inner=2), cuda_ms(run_p, reps=3, inner=1)
-            q = rnd(bsz, heads, s, 64)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, q, q), reps=3, inner=2)
             m = bsz * s
-            flops = 2 * m * c * 3 * c + 4 * bsz * heads * s * s * 64 + 2 * m * c * c
+            flops = 2 * m * c * 3 * c + 4 * bsz * (c // 64) * s * s * 64 + 2 * m * c * c
             nbytes = 2 * (2 * m * c + 4 * c * c + c)
             bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
+            # No one PyTorch call computes the sub-layer (LN, projections,
+            # attention, residual): library_ms is null; the attention core
+            # is held against SDPA on its own below.
             rows.append(dict(name="qkvt", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                             library_ms=lib))
-            del q
+                             library_ms=None))
         else:
             rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
         del a
+    torch.cuda.empty_cache()
+
+    # C's attention core alone: the shared forward on C's q/k/v scratch
+    # (3, B, heads, S, 64), o as (B, S, C), at the level-0 S of both
+    # resolutions, beside SDPA on the same (B, heads, S, 64) tensors and the
+    # bound 4 B N S^2 d at the dense peak; checked against the plain forward
+    # at S = 2880.
+    for s in (9216, 2880):
+        bsz, heads = 28, 5
+        scratch = rnd(3, bsz, heads, s, 64)
+        qc, kc, vc = (t.permute(0, 2, 1, 3) for t in scratch)
+        run_k = lambda: flash._launch_fwd(qc, kc, vc, 0.125, False, "flash_tq")[0]
+        if s == 2880:
+            err, sc, rr, ok = compare(run_k(), flash.flash_attention_tq_plain(qc, kc, vc, 0.125), 3e-2,
+                                      rms_tol=1e-2)
+            report("qkvt", f"attention core (B,N,S,d)=({bsz},{heads},{s},64)", err, sc, rr, ok, 3e-2, 1e-2)
+        ms = cuda_ms(run_k, reps=5, inner=2)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(scratch[0], scratch[1], scratch[2]), reps=5, inner=2)
+        bnd, _ = bound_ms(2 * 4 * bsz * heads * s * 64, 4.0 * bsz * heads * s * s * 64, BF16_FLOPS)
+        cores.append(dict(name="qkvt core", shape=(bsz, heads, s, 64), ms=ms, sdpa_ms=lib, bound_ms=bnd))
+        del scratch, qc, kc, vc
     torch.cuda.empty_cache()
 
     # D: temporal sub-layer, x (2, 14, S, C) at the three levels; logits of
@@ -283,14 +324,20 @@ def check_kernels(torch, ops):
                branch=True)
         if level == 0:
             ms, plain = cuda_ms(run_k), cuda_ms(run_p)
-            q = rnd(2 * s, heads, f, 64)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, q, q))
             m = 2 * f * s
             flops = 2 * m * c * 3 * c + 4 * 2 * s * heads * f * f * 64 + 2 * m * c * c
             nbytes = 2 * (2 * m * c + 4 * c * c + c)
             bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
             rows.append(dict(name="temporal", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                             library_ms=lib))
+                             library_ms=None))
+            # D's frame-attention core alone (its kernel's device time in
+            # the sub-layer, from torch.profiler) beside SDPA on the same
+            # (2 S, heads, 14, 64) view.
+            core = profiled_kernel_ms(torch, run_k, "frame_attn")
+            q = rnd(2 * s, heads, f, 64)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, q, q))
+            bnd, _ = bound_ms(2 * 4 * 2 * s * heads * f * 64, 4.0 * 2 * s * heads * f * f * 64, BF16_FLOPS)
+            cores.append(dict(name="temporal core", shape=(2 * s, heads, f, 64), ms=core, sdpa_ms=lib, bound_ms=bnd))
             del q
         else:
             rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
@@ -474,6 +521,9 @@ def check_kernels(torch, ops):
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         say(f"  {r['name']:9s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={lib}")
+    for r in cores:
+        say(f"  {r['name']:13s} {str(r['shape']):22s} ms={r['ms']:.4f} sdpa_ms={r['sdpa_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} (operations)")
     return rows, ok_all
 
 
@@ -574,10 +624,8 @@ def _kernel_group(name: str) -> str:
     """The group of a device kernel's name in the step profile."""
     low = name.lower()
     for key, group in (("gn_", "A groupnorm (port)"), ("mlp_kernel", "B mlp (port)"), ("ln_rows", "8 LayerNorm (port)"),
-                       ("flash_fwd<", "5/6/7 flash attention fwd (port)"),
-                       ("flash_bwd", "5 flash attention bwd (port)"),
-                       ("flash_delta", "5 flash attention bwd (port)"),
-                       ("flash_fwd", "C flash attention (port)"), ("frame_attn", "D frame attention (port)"),
+                       ("hopper_flash_fwd", "flash attention fwd (port: C's core, 5, 6, 7)"),
+                       ("flash_bwd", "5 flash attention bwd (port)"), ("frame_attn", "D frame attention (port)"),
                        ("gemm_kernel", "C/D projection GEMMs (port)"), ("row_stats", "C/D projection GEMMs (port)")):
         if key in low:
             return group
@@ -987,6 +1035,15 @@ def main() -> None:
         _native.library(name)
         regs = [ln.strip() for ln in _native.build_log(name).splitlines() if "registers" in ln]
         say(f"  build {name}: {'; '.join(regs) if regs else 'cached'}")
+    # The flash library (the forward of C, 5, 6, 7 and kernel 5's backward)
+    # must run on wgmma fed by TMA: count both in its SASS.
+    cuobjdump = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_native._lib_path("flash"))], capture_output=True, text=True,
+                          timeout=300).stdout
+    hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+    say(f"  flash library SASS: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
+    if not hgmma or not utmaldg:
+        fail("the flash library has no HGMMA or no UTMALDG instruction: it is not on wgmma and TMA")
     say(f"phase 1: {torch.cuda.get_device_name(0)} | {card} | kernels built in {build_s:.1f} s")
 
     # Phase 2

@@ -7,12 +7,14 @@
 //            p = exp2(q k^T * scale * log2(e) - lse), ds = p * (do v^T - delta),
 //            dq = ds k * scale, dk = ds^T q * scale, dv = p^T do.
 //
-// One forward kernel serves three Pallas entry points of
-// posetraj_tpu/ops/pallas_attention.py; it reads q, k, v and writes o by
-// (batch, head, row) strides with the head_dim axis contiguous:
+// The forward is flash_fwd.cuh's, which kernel C launches too; it reads q,
+// k, v and writes o by (batch, head, row) strides with the head_dim axis
+// contiguous, and serves three Pallas entry points of
+// posetraj_tpu/ops/pallas_attention.py:
 //   kernel 5  flash_attention_diff: _flash_fwd_lse (_flash_kernel_tq_lse),
 //             head-folded (BN, S, d) operands, lse written; its backward
-//             replaces _flash_bwd (_flash_bwd_dq_kernel, _flash_bwd_dkv_kernel);
+//             (below) replaces _flash_bwd (_flash_bwd_dq_kernel,
+//             _flash_bwd_dkv_kernel);
 //   kernel 6  flash_attention_qkv: _flash_qkv_fwd_impl (_flash_kernel_qkv),
 //             per-head tiles read straight out of the packed (B, S, 3C)
 //             projection (row stride 3C, q/k/v at column offsets 0, C, 2C,
@@ -20,491 +22,393 @@
 //   kernel 7  flash_attention_tq and flash_attention (_flash_kernel_tq,
 //             _flash_kernel): (B, Sq, N, d) q and (B, Skv, N, d) k, v read
 //             in place (split views of a packed projection too), o written as
-//             (B, Sq, N, d), no lse. The two Pallas variants differ only in
-//             the TPU layout of their accumulator.
-// The TPU kernels work on transposed (d, bq) tiles for their lane rule; here
-// every tile stays row-major (rows of d contiguous bf16), which is what
-// ldmatrix wants.
+//             (B, Sq, N, d), no lse.
 //
-// Bound on the H100: operations. The forward does 4*Sq*Skv*d and the
-// backward 10*Sq*Skv*d multiply-adds per (batch, head) against
-// O((Sq + Skv) * d) bytes; the (Sq, Skv) logits and probabilities live only
-// in registers. Design: one block of 8 warps per 128 rows (queries for the
-// forward and dq, keys for dk/dv); each warp owns 16 rows and loops over
-// tiles of the other side, double-buffered in shared memory by cp.async.
-// Products are mma.sync m16n8k16 (bf16 operands, float32 accumulators); an
-// accumulator (logits, probabilities, ds) becomes the A operand of the next
-// product in registers (mma.cuh). P and dS are rounded to bf16 for their
-// products, as the forward rounds P for P @ V. dk/dv are summed by the block
-// that owns the keys, so no atomics. Ragged edges: keys >= Skv get p = 0 in
-// the forward and dq; query rows >= Sq get p = 0 in dk/dv, so padded rows
-// add nothing; rows past the end are zero-filled on load and never stored.
-// wgmma and TMA are the work of a later change.
+// Backward. Bound on the H100: operations, 10 * Sq * Skv * d multiply-adds
+// per (batch, head) (S, dP, dV, dK, dQ) at 989 TFLOP/s. Three launches:
+// flash_bwd_prep writes delta and a copy of lse padded to a multiple of 128
+// rows (lse +inf, delta 0 on the padding, so a padded query row gets p = 0
+// without a mask); flash_bwd_dkv and flash_bwd_dq each recompute P, so the
+// pair does 14 of the 10 units of work, in exchange for sums that need no
+// atomics and are the same from run to run. Both take the forward's shape:
+// a producer warpgroup whose one thread keeps TMA loads in a two-stage
+// mbarrier ring, and two consumer warpgroups of 64 rows each (setmaxnreg
+// 24 / 240), every product a wgmma. The consumers do not take turns as the
+// forward's do: on an H100 that made the pair slower.
+//   dk/dv: a block owns 128 keys; per 64-query tile S^T = K Q^T and dP^T =
+//     V dO^T (shared-memory operands), then dV += P^T dO and dK += dS^T Q
+//     with P^T and dS^T as register A operands and dO, Q as transposed B.
+//   dq: a block owns 128 queries; per 64-key tile
+//     S = Q K^T, dP = dO V^T, then dQ += dS K, dS from registers.
+// P and dS are rounded to bf16 for their products, as the forward rounds P.
+// Keys >= Skv get p = 0 in dq (a zero-filled key has logit 0); keys >= Skv
+// in dk/dv and queries >= Sq in dq are not stored.
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 16 * kWarps;  // rows a block owns: queries (fwd, dq) or keys (dk/dv)
-
-template <int HD>
-struct Tile {
-  static constexpr int kLd = HD + 8;               // padded smem row: ldmatrix without bank conflicts
-  static constexpr int kCols = HD == 64 ? 64 : 32;  // tile of the other side per loop step
-  static constexpr size_t kFwdSmem = sizeof(bf16) * (kRows + 4 * kCols) * kLd;
-  static constexpr size_t kDqSmem = sizeof(bf16) * (2 * kRows + 4 * kCols) * kLd;
-  static constexpr size_t kDkvSmem = sizeof(bf16) * (2 * kRows + 4 * kCols) * kLd + sizeof(float) * 4 * kCols;
-};
-
-// Rows [row0, row0 + rows) of an (S, HD) bf16 matrix whose rows lie `ld`
-// elements apart into smem with row stride HD + 8, by cp.async; rows past S
-// are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t row0, int rows, int64_t s,
-                                          int64_t ld = HD) {
-  constexpr int kV = HD / 8;
-  for (int v = threadIdx.x; v < rows * kV; v += blockDim.x) {
-    const int r = v / kV, cv = v % kV;
-    const bool valid = row0 + r < s;
-    cp_async16(dst + r * (HD + 8) + cv * 8, src + (valid ? (row0 + r) * ld + cv * 8 : 0), valid);
-  }
-}
-
-// Element strides of an operand addressed by (batch, head, row); the
-// head_dim axis is contiguous.
-struct Layout {
-  int64_t batch, head, row;
-};
-
-// S = A B^T for one warp: 16 rows of A (registers, HD/16 k-chunks) against
-// the kCols rows of a [n][k] smem tile.
-template <int HD, int N>
-__device__ __forceinline__ void rows_times_tile(float (*acc)[4], uint32_t (*a)[4], const bf16* tile) {
-#pragma unroll
-  for (int nt = 0; nt < N / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int np = 0; np < N / 16; ++np) {
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      uint32_t b[4];
-      load_b_nk(b, tile, HD + 8, np * 16, kc * 16);
-      mma16816(acc[2 * np], a[kc], b[0], b[1]);
-      mma16816(acc[2 * np + 1], a[kc], b[2], b[3]);
-    }
-  }
-}
-
-// out (16 x HD) += P (16 x N, accumulator layout, rounded to bf16) @ tile,
-// where the smem tile is stored [N][HD].
-template <int HD, int N>
-__device__ __forceinline__ void acc_times_tile(float (*out)[4], float (*p)[4], const bf16* tile) {
-#pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc) {
-    uint32_t pa[4];
-    pack_a(pa, p[2 * kc], p[2 * kc + 1]);
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t b[4];
-      load_b_kn(b, tile, HD + 8, kc * 16, dp * 16);
-      mma16816(out[2 * dp], pa, b[0], b[1]);
-      mma16816(out[2 * dp + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// Stores the warp's 16 x HD accumulator times `mul` as bf16 rows
-// [r0, r0 + 16) of an (S, HD) matrix whose rows lie `ld` elements apart;
-// rows >= s are skipped.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4], int64_t r0, int64_t s, float mul_lo,
-                                           float mul_hi, int64_t ld = HD) {
-  const int lane = threadIdx.x & 31, g = lane / 4, t = lane % 4;
-  const int64_t lo = r0 + g, hi = lo + 8;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (lo < s)
-      *reinterpret_cast<__nv_bfloat162*>(dst + lo * ld + col) =
-          __floats2bfloat162_rn(acc[dt][0] * mul_lo, acc[dt][1] * mul_lo);
-    if (hi < s)
-      *reinterpret_cast<__nv_bfloat162*>(dst + hi * ld + col) =
-          __floats2bfloat162_rn(acc[dt][2] * mul_hi, acc[dt][3] * mul_hi);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Forward: o and, if lse is not null, the base-2 lse. Grid (ceil(Sq / 128),
-// B * heads); block (x, y) owns queries [128 x, 128 x + 128) of batch
-// y / heads, head y % heads.
+// delta = rowsum(o * do) and lse, both into (BN, sq_pad) float32 with
+// padding rows (lse +inf, delta 0); HD/8 lanes per row, 16 bytes each.
 // ---------------------------------------------------------------------------
 template <int HD>
-__global__ void __launch_bounds__(kWarps * 32) flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                                                         float* __restrict__ lse, Layout lq, Layout lk, Layout lv,
-                                                         Layout lout, int heads, int64_t sq, int64_t skv, float c) {
-  constexpr int kLd = HD + 8, kN = Tile<HD>::kCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kRows * kLd;   // [2][kN][kLd]
-  bf16* Vs = Ks + 2 * kN * kLd;  // [2][kN][kLd]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int64_t bn = blockIdx.y, q0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int64_t batch = bn / heads, head = bn % heads;
-  const bf16* qb = q + batch * lq.batch + head * lq.head;
-  const bf16* kb = k + batch * lk.batch + head * lk.head;
-  const bf16* vb = v + batch * lv.batch + head * lv.head;
-  const int n_tiles = static_cast<int>((skv + kN - 1) / kN);
-  const int qr = warp * 16;
-
-  load_rows<HD>(Qs, qb, q0, kRows, sq, lq.row);
-  load_rows<HD>(Ks, kb, 0, kN, skv, lk.row);
-  load_rows<HD>(Vs, vb, 0, kN, skv, lv.row);
-  cp_async_commit();
-
-  uint32_t qa[HD / 16][4];
-  float oacc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // rows g and g + 8 of this warp
-  float l_lo = 0.f, l_hi = 0.f;               // this thread's partial row sums
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_rows<HD>(Ks + (buf ^ 1) * kN * kLd, kb, static_cast<int64_t>(j + 1) * kN, kN, skv, lk.row);
-      load_rows<HD>(Vs + (buf ^ 1) * kN * kLd, vb, static_cast<int64_t>(j + 1) * kN, kN, skv, lv.row);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc) load_a(qa[kc], Qs, kLd, qr, kc * 16);
-    }
-    float s[kN / 8][4];
-    rows_times_tile<HD, kN>(s, qa, Ks + buf * kN * kLd);
-
-    // Into the log2 domain; keys past Skv get -inf.
-    const int64_t k0 = static_cast<int64_t>(j) * kN;
-    const bool ragged = k0 + kN > skv;
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = s[nt][e] * c;
-        if (ragged && k0 + nt * 8 + 2 * t + (e & 1) >= skv) val = -INFINITY;
-        s[nt][e] = val;
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    // Tile 0 holds at least one valid key, so the running max is finite
-    // from then on and exp2(-inf - m) is 0, never NaN.
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float al_lo = fast_exp2(m_lo - mn_lo), al_hi = fast_exp2(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
-      s[nt][0] = fast_exp2(s[nt][0] - mn_lo);
-      s[nt][1] = fast_exp2(s[nt][1] - mn_lo);
-      s[nt][2] = fast_exp2(s[nt][2] - mn_hi);
-      s[nt][3] = fast_exp2(s[nt][3] - mn_hi);
-      ps_lo += s[nt][0] + s[nt][1];
-      ps_hi += s[nt][2] + s[nt][3];
-    }
-    l_lo = l_lo * al_lo + ps_lo;
-    l_hi = l_hi * al_hi + ps_hi;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      oacc[dt][0] *= al_lo;
-      oacc[dt][1] *= al_lo;
-      oacc[dt][2] *= al_hi;
-      oacc[dt][3] *= al_hi;
-    }
-    acc_times_tile<HD, kN>(oacc, s, Vs + buf * kN * kLd);
-    __syncthreads();  // every warp is done with buffer `buf` before it is refilled
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const int64_t row0 = q0 + qr;
-  store_rows<HD>(o + batch * lout.batch + head * lout.head, oacc, row0, sq, 1.f / l_lo, 1.f / l_hi, lout.row);
-  if (lse != nullptr && t == 0) {
-    if (row0 + g < sq) lse[bn * sq + row0 + g] = m_lo + log2f(l_lo);
-    if (row0 + g + 8 < sq) lse[bn * sq + row0 + g + 8] = m_hi + log2f(l_hi);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// delta = rowsum(o * do) in float32: HD/8 lanes per row, 16 bytes each.
-// ---------------------------------------------------------------------------
-template <int HD>
-__global__ void flash_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ delta,
-                            int64_t rows) {
+__global__ void flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, float* __restrict__ lse_pad,
+                               float* __restrict__ delta, int64_t sq, int64_t sq_pad, int64_t rows_pad) {
   constexpr int kL = HD / 8;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t row = tid / kL;
+  const int64_t row = tid / kL, fold = row / sq_pad, r = row % sq_pad;
   const int part = static_cast<int>(tid % kL);
+  const bool valid = row < rows_pad && r < sq;
+  const int64_t src = fold * sq + r;
   float acc = 0.f;
-  if (row < rows) {
-    const Vec16<bf16> a = load16(o + row * HD + part * 8), b = load16(dout + row * HD + part * 8);
+  if (valid) {
+    const Vec16<bf16> a = load16(o + src * HD + part * 8), b = load16(dout + src * HD + part * 8);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc += a.get(i) * b.get(i);
   }
 #pragma unroll
   for (int off = kL / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < rows && part == 0) delta[row] = acc;
+  if (row < rows_pad && part == 0) {
+    delta[row] = acc;
+    lse_pad[row] = valid ? lse[src] : INFINITY;
+  }
+}
+
+// Rows [r0, r0 + 64) of the warpgroup's HD-wide float32 accumulator halves,
+// times `mul`, as bf16 rows of a contiguous (S, HD) matrix; rows >= s are
+// skipped.
+template <int HD>
+__device__ __forceinline__ void store_acc(bf16* dst, float (&acc)[HD / 64][32], int r0, int s, float mul) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32, g = lane / 4, t = lane % 4;
+  const int lo = r0 + 16 * warp + g, hi = lo + 8;
+#pragma unroll
+  for (int h = 0; h < HD / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = h * 64 + 8 * i + 2 * t;
+      if (lo < s)
+        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<int64_t>(lo) * HD + col) =
+            __floats2bfloat162_rn(acc[h][4 * i] * mul, acc[h][4 * i + 1] * mul);
+      if (hi < s)
+        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<int64_t>(hi) * HD + col) =
+            __floats2bfloat162_rn(acc[h][4 * i + 2] * mul, acc[h][4 * i + 3] * mul);
+    }
+}
+
+template <int HD>
+__device__ __forceinline__ void zero_acc(float (&acc)[HD / 64][32]) {
+#pragma unroll
+  for (int h = 0; h < HD / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+}
+
+// S (64 x N) = A B^T over HD: A rows [row0, row0 + 64) of a [half][a_rows][64]
+// tile, B the N rows of a [half][N][64] tile; both K-major.
+template <int HD, int N>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], const bf16* a, int a_rows, int row0, const bf16* b) {
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    if constexpr (N == 128)
+      wgmma_ss_n128(acc, desc_k(a, a_rows, row0, kc), desc_k(b, N, 0, kc), kc);
+    else
+      wgmma_ss_n64(acc, desc_k(a, a_rows, row0, kc), desc_k(b, N, 0, kc), kc);
+  }
+}
+
+// acc (64 x HD) += A (64 x K, registers) B, B the K rows of a [half][K][64]
+// tile read MN-major.
+template <int HD, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[HD / 64][32], const uint32_t (&a)[K / 16][4], const bf16* b) {
+#pragma unroll
+  for (int h = 0; h < HD / 64; ++h)
+#pragma unroll
+    for (int kc = 0; kc < K / 16; ++kc) wgmma_rs_n64(acc[h], a[kc], desc_mn(b, K, kc, h));
+}
+
+template <int HD>
+struct DkvTile {
+  static constexpr int kM = 128, kN = 64, kStages = 2;  // keys a block owns, queries a tile holds
+  static constexpr int kOwnBytes = kM * HD * 2, kTileBytes = kN * HD * 2;
+  static constexpr size_t kSmem = 1024 + 2 * kOwnBytes + 2 * kStages * kTileBytes + 8 * (1 + 3 * kStages);
+};
+
+template <int HD>
+struct DqTile {
+  static constexpr int kM = 128, kN = 64, kStages = 2;  // queries a block owns, keys a tile holds
+  static constexpr int kOwnBytes = kM * HD * 2, kTileBytes = kN * HD * 2;
+  static constexpr size_t kSmem = 1024 + 2 * kOwnBytes + 2 * kStages * kTileBytes + 8 * (1 + 3 * kStages);
+};
+
+// The producer of both backward kernels: the block's own two operands
+// (rows `own0` of maps a, b, kM rows each) once, then tiles j of maps c, d
+// (kN rows each) through the ring. All coordinates are (col, row, 0, fold).
+template <int HD, typename T>
+__device__ __forceinline__ void bwd_produce(const CUtensorMap* ma, const CUtensorMap* mb, const CUtensorMap* mc,
+                                            const CUtensorMap* md, bf16* own_a, bf16* own_b, bf16* ring_c,
+                                            bf16* ring_d, uint64_t* own_full, uint64_t* c_full, uint64_t* d_full,
+                                            uint64_t* empty, int own0, int n_tiles, int fold) {
+  mbar_expect_tx(own_full, 2 * T::kOwnBytes);
+  for (int h = 0; h < HD / 64; ++h) {
+    tma_load(own_a + h * T::kM * 64, ma, own_full, h * 64, own0, 0, fold);
+    tma_load(own_b + h * T::kM * 64, mb, own_full, h * 64, own0, 0, fold);
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % T::kStages;
+    mbar_wait(&empty[s], ((j / T::kStages) & 1) ^ 1);
+    mbar_expect_tx(&c_full[s], T::kTileBytes);
+    for (int h = 0; h < HD / 64; ++h)
+      tma_load(ring_c + (s * HD / 64 + h) * T::kN * 64, mc, &c_full[s], h * 64, j * T::kN, 0, fold);
+    mbar_expect_tx(&d_full[s], T::kTileBytes);
+    for (int h = 0; h < HD / 64; ++h)
+      tma_load(ring_d + (s * HD / 64 + h) * T::kN * 64, md, &d_full[s], h * 64, j * T::kN, 0, fold);
+  }
+}
+
+// Shared-memory layout of both: own a, own b, ring c, ring d, barriers.
+template <typename T>
+struct BwdSmem {
+  bf16 *a, *b, *c, *d;
+  uint64_t *own_full, *c_full, *d_full, *empty;
+  __device__ explicit BwdSmem(unsigned char* smem, int hd) {
+    a = reinterpret_cast<bf16*>(smem);
+    b = a + T::kM * hd;
+    c = b + T::kM * hd;
+    d = c + T::kStages * T::kN * hd;
+    own_full = reinterpret_cast<uint64_t*>(d + T::kStages * T::kN * hd);
+    c_full = own_full + 1;
+    d_full = c_full + T::kStages;
+    empty = d_full + T::kStages;
+    if (threadIdx.x == 0) {
+      mbar_init(own_full, 1);
+      for (int s = 0; s < T::kStages; ++s) {
+        mbar_init(&c_full[s], 1);
+        mbar_init(&d_full[s], 1);
+        mbar_init(&empty[s], 256);
+      }
+      mbar_init_fence();
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// dk, dv: one block per (fold, 128 keys), looping over 64-query tiles.
+// Maps: k, v in boxes of 128 rows; q, do in boxes of 64.
+// ---------------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dkv(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse_pad, const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int sq, int sq_pad, int skv, float c, float scale) {
+  using T = DkvTile<HD>;
+  constexpr int kN = T::kN;
+  extern __shared__ unsigned char smem_raw[];
+  BwdSmem<T> sm(align1024(smem_raw), HD);
+  const int fold = blockIdx.y, k0 = blockIdx.x * T::kM;
+  const int n_tiles = (sq + kN - 1) / kN;
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0)
+      bwd_produce<HD, T>(&tk, &tv, &tq, &tdo, sm.a, sm.b, sm.c, sm.d, sm.own_full, sm.c_full, sm.d_full, sm.empty,
+                         k0, n_tiles, fold);
+  } else {
+    regs_inc<240>();
+    const int ct = threadIdx.x - 128, w = ct / 128, t = ct % 4;
+    const float* lb = lse_pad + static_cast<int64_t>(fold) * sq_pad;
+    const float* eb = delta + static_cast<int64_t>(fold) * sq_pad;
+    float dk_acc[HD / 64][32], dv_acc[HD / 64][32];
+    zero_acc<HD>(dk_acc);
+    zero_acc<HD>(dv_acc);
+    mbar_wait(sm.own_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % T::kStages;
+      const uint32_t parity = (i / T::kStages) & 1;
+      const bf16* Qt = sm.c + s * kN * HD;
+      const bf16* Dt = sm.d + s * kN * HD;
+      // lse and delta of this thread's query columns (padded: no mask).
+      const int i0 = i * kN;
+      float2 ls[kN / 8], es[kN / 8];
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) {
+        ls[n] = *reinterpret_cast<const float2*>(lb + i0 + 8 * n + 2 * t);
+        es[n] = *reinterpret_cast<const float2*>(eb + i0 + 8 * n + 2 * t);
+      }
+      float st[kN / 2], dpt[kN / 2];
+      mbar_wait(&sm.c_full[s], parity);
+      wgmma_fence();
+      issue_ss<HD, kN>(st, sm.a, T::kM, 64 * w, Qt);
+      wgmma_commit();
+      mbar_wait(&sm.d_full[s], parity);
+      issue_ss<HD, kN>(dpt, sm.b, T::kM, 64 * w, Dt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      // Columns are queries: p^T = exp2(s * c - lse[query]), ds^T = p^T *
+      // (dp^T - delta[query]).
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l = (e & 1) ? ls[n].y : ls[n].x, dl = (e & 1) ? es[n].y : es[n].x;
+          const float p = fast_exp2(st[4 * n + e] * c - l);
+          st[4 * n + e] = p;
+          dpt[4 * n + e] = p * (dpt[4 * n + e] - dl);
+        }
+      }
+      uint32_t pa[kN / 16][4], da[kN / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kN / 16; ++kc) {
+        acc_to_a(pa[kc], st, kc);
+        acc_to_a(da[kc], dpt, kc);
+      }
+#pragma unroll
+      for (int h = 0; h < HD / 64; ++h) {
+        fence_acc(dv_acc[h]);
+        fence_acc(dk_acc[h]);
+      }
+      wgmma_fence();
+      issue_rs<HD, kN>(dv_acc, pa, Dt);
+      issue_rs<HD, kN>(dk_acc, da, Qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < HD / 64; ++h) {
+        fence_acc(dv_acc[h]);
+        fence_acc(dk_acc[h]);
+      }
+      mbar_arrive(&sm.empty[s]);
+    }
+    const int64_t base = static_cast<int64_t>(fold) * skv * HD;
+    store_acc<HD>(dk + base, dk_acc, k0 + 64 * w, skv, scale);
+    store_acc<HD>(dv + base, dv_acc, k0 + 64 * w, skv, 1.f);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // dq: one block per (fold, 128 queries), looping over key tiles.
+// Maps: q, do in boxes of 128 rows; k, v in boxes of DqTile::kN.
 // ---------------------------------------------------------------------------
 template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int64_t sq, int64_t skv, float c, float scale) {
-  constexpr int kLd = HD + 8, kN = Tile<HD>::kCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ds = Qs + kRows * kLd;   // dO rows
-  bf16* Ks = Ds + kRows * kLd;   // [2][kN][kLd]
-  bf16* Vs = Ks + 2 * kN * kLd;  // [2][kN][kLd]
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ lse_pad, const float* __restrict__ delta, bf16* __restrict__ dq, int sq,
+                 int sq_pad, int skv, float c, float scale) {
+  using T = DqTile<HD>;
+  constexpr int kN = T::kN;
+  extern __shared__ unsigned char smem_raw[];
+  BwdSmem<T> sm(align1024(smem_raw), HD);
+  const int fold = blockIdx.y, q0 = blockIdx.x * T::kM;
+  const int n_tiles = (skv + kN - 1) / kN;
+  __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int64_t bn = blockIdx.y, q0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const bf16* kb = k + bn * skv * HD;
-  const bf16* vb = v + bn * skv * HD;
-  const int n_tiles = static_cast<int>((skv + kN - 1) / kN);
-  const int qr = warp * 16;
-  const int64_t row_lo = q0 + qr + g, row_hi = row_lo + 8;
-  // Rows past Sq: lse = delta = 0 with zero q and dO give ds = 0, not NaN.
-  const float lse_lo = row_lo < sq ? lse[bn * sq + row_lo] : 0.f;
-  const float lse_hi = row_hi < sq ? lse[bn * sq + row_hi] : 0.f;
-  const float dl_lo = row_lo < sq ? delta[bn * sq + row_lo] : 0.f;
-  const float dl_hi = row_hi < sq ? delta[bn * sq + row_hi] : 0.f;
-
-  load_rows<HD>(Qs, q + bn * sq * HD, q0, kRows, sq);
-  load_rows<HD>(Ds, dout + bn * sq * HD, q0, kRows, sq);
-  load_rows<HD>(Ks, kb, 0, kN, skv);
-  load_rows<HD>(Vs, vb, 0, kN, skv);
-  cp_async_commit();
-
-  uint32_t qa[HD / 16][4], da[HD / 16][4];
-  float acc[HD / 8][4];
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0)
+      bwd_produce<HD, T>(&tq, &tdo, &tk, &tv, sm.a, sm.b, sm.c, sm.d, sm.own_full, sm.c_full, sm.d_full, sm.empty,
+                         q0, n_tiles, fold);
+  } else {
+    regs_inc<240>();
+    const int ct = threadIdx.x - 128, w = ct / 128;
+    const int warp = (ct % 128) / 32, lane = ct % 32, g = lane / 4, t = lane % 4;
+    // This thread's rows g and g + 8; padded rows read lse +inf, delta 0.
+    const int64_t row_lo = static_cast<int64_t>(fold) * sq_pad + q0 + 64 * w + 16 * warp + g;
+    const float lse_lo = lse_pad[row_lo], lse_hi = lse_pad[row_lo + 8];
+    const float dl_lo = delta[row_lo], dl_hi = delta[row_lo + 8];
+    float acc[HD / 64][32];
+    zero_acc<HD>(acc);
+    mbar_wait(sm.own_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % T::kStages;
+      const uint32_t parity = (j / T::kStages) & 1;
+      const bf16* Kt = sm.c + s * kN * HD;
+      const bf16* Vt = sm.d + s * kN * HD;
+      float sacc[kN / 2], dp[kN / 2];
+      mbar_wait(&sm.c_full[s], parity);
+      wgmma_fence();
+      issue_ss<HD, kN>(sacc, sm.a, T::kM, 64 * w, Kt);
+      wgmma_commit();
+      mbar_wait(&sm.d_full[s], parity);
+      issue_ss<HD, kN>(dp, sm.b, T::kM, 64 * w, Vt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sacc);
+      fence_acc(dp);
+      const int k0 = j * kN;
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_rows<HD>(Ks + (buf ^ 1) * kN * kLd, kb, static_cast<int64_t>(j + 1) * kN, kN, skv);
-      load_rows<HD>(Vs + (buf ^ 1) * kN * kLd, vb, static_cast<int64_t>(j + 1) * kN, kN, skv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
+      for (int n = 0; n < kN / 8; ++n) {
 #pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc) {
-        load_a(qa[kc], Qs, kLd, qr, kc * 16);
-        load_a(da[kc], Ds, kLd, qr, kc * 16);
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          const float p =
+              k0 + 8 * n + 2 * t + (e & 1) < skv ? fast_exp2(sacc[4 * n + e] * c - (lo ? lse_lo : lse_hi)) : 0.f;
+          sacc[4 * n + e] = p * (dp[4 * n + e] - (lo ? dl_lo : dl_hi));  // ds
+        }
       }
-    }
-    const bf16* Kt = Ks + buf * kN * kLd;
-    float s[kN / 8][4], dp[kN / 8][4];
-    rows_times_tile<HD, kN>(s, qa, Kt);
-    rows_times_tile<HD, kN>(dp, da, Vs + buf * kN * kLd);
-    const int64_t k0 = static_cast<int64_t>(j) * kN;
+      uint32_t da[kN / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
+      for (int kc = 0; kc < kN / 16; ++kc) acc_to_a(da[kc], sacc, kc);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const float p = k0 + nt * 8 + 2 * t + (e & 1) < skv ? fast_exp2(s[nt][e] * c - (lo ? lse_lo : lse_hi)) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - (lo ? dl_lo : dl_hi));  // ds
-      }
+      for (int h = 0; h < HD / 64; ++h) fence_acc(acc[h]);
+      wgmma_fence();
+      issue_rs<HD, kN>(acc, da, Kt);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < HD / 64; ++h) fence_acc(acc[h]);
+      mbar_arrive(&sm.empty[s]);
     }
-    acc_times_tile<HD, kN>(acc, s, Kt);
-    __syncthreads();
+    store_acc<HD>(dq + static_cast<int64_t>(fold) * sq * HD, acc, q0 + 64 * w, sq, scale);
   }
-  store_rows<HD>(dq + bn * sq * HD, acc, q0 + qr, sq, scale, scale);
-}
-
-// ---------------------------------------------------------------------------
-// dk, dv: one block per (fold, 128 keys), looping over query tiles.
-// ---------------------------------------------------------------------------
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int64_t sq, int64_t skv, float c, float scale) {
-  constexpr int kLd = HD + 8, kN = Tile<HD>::kCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kRows * kLd;
-  bf16* Qs = Vs + kRows * kLd;   // [2][kN][kLd]
-  bf16* Ds = Qs + 2 * kN * kLd;  // [2][kN][kLd] dO rows
-  float* Ls = reinterpret_cast<float*>(Ds + 2 * kN * kLd);  // [2][kN] lse
-  float* Es = Ls + 2 * kN;                                   // [2][kN] delta
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
-  const int64_t bn = blockIdx.y, k0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const bf16* qb = q + bn * sq * HD;
-  const bf16* db = dout + bn * sq * HD;
-  const float* lb = lse + bn * sq;
-  const float* eb = delta + bn * sq;
-  const int n_tiles = static_cast<int>((sq + kN - 1) / kN);
-  const int kr = warp * 16;
-
-  // lse/delta of query tile i into buffer `buf` (plain stores: the buffer
-  // was last read before the previous iteration's closing barrier).
-  auto load_stats = [&](int buf, int64_t i0) {
-    for (int r = threadIdx.x; r < kN; r += blockDim.x) {
-      const bool valid = i0 + r < sq;
-      Ls[buf * kN + r] = valid ? lb[i0 + r] : 0.f;
-      Es[buf * kN + r] = valid ? eb[i0 + r] : 0.f;
-    }
-  };
-
-  load_rows<HD>(Ks, k + bn * skv * HD, k0, kRows, skv);
-  load_rows<HD>(Vs, v + bn * skv * HD, k0, kRows, skv);
-  load_rows<HD>(Qs, qb, 0, kN, sq);
-  load_rows<HD>(Ds, db, 0, kN, sq);
-  cp_async_commit();
-  load_stats(0, 0);
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < n_tiles) {
-      const int64_t i1 = static_cast<int64_t>(i + 1) * kN;
-      load_rows<HD>(Qs + (buf ^ 1) * kN * kLd, qb, i1, kN, sq);
-      load_rows<HD>(Ds + (buf ^ 1) * kN * kLd, db, i1, kN, sq);
-      cp_async_commit();
-      load_stats(buf ^ 1, i1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * kN * kLd;
-    const bf16* Dt = Ds + buf * kN * kLd;
-    const float* Lt = Ls + buf * kN;
-    const float* Et = Es + buf * kN;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys; the K and V
-    // A fragments are read from smem per k-chunk to keep registers for the
-    // two HD-wide accumulators.
-    float s[kN / 8][4], dp[kN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, kLd, kr, kc * 16);
-      load_a(va, Vs, kLd, kr, kc * 16);
-#pragma unroll
-      for (int np = 0; np < kN / 16; ++np) {
-        uint32_t b[4];
-        load_b_nk(b, Qt, kLd, np * 16, kc * 16);
-        mma16816(s[2 * np], ka, b[0], b[1]);
-        mma16816(s[2 * np + 1], ka, b[2], b[3]);
-        load_b_nk(b, Dt, kLd, np * 16, kc * 16);
-        mma16816(dp[2 * np], va, b[0], b[1]);
-        mma16816(dp[2 * np + 1], va, b[2], b[3]);
-      }
-    }
-    // Columns are queries: p^T = exp2(s * c - lse[query]); queries past Sq
-    // contribute nothing.
-    const int64_t i0 = static_cast<int64_t>(i) * kN;
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const float p = i0 + col < sq ? fast_exp2(s[nt][e] * c - Lt[col]) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - Et[col]);  // ds^T
-      }
-    }
-    acc_times_tile<HD, kN>(dv_acc, s, Dt);
-    acc_times_tile<HD, kN>(dk_acc, dp, Qt);
-    __syncthreads();
-  }
-  store_rows<HD>(dk + bn * skv * HD, dk_acc, k0 + kr, skv, scale, scale);
-  store_rows<HD>(dv + bn * skv * HD, dv_acc, k0 + kr, skv, 1.f, 1.f);
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int HD>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, Layout lq, Layout lk, Layout lv,
-               Layout lout, int64_t b, int heads, int64_t sq, int64_t skv, float scale, cudaStream_t st) {
-  constexpr size_t smem = Tile<HD>::kFwdSmem;
-  int err = set_smem(reinterpret_cast<const void*>(flash_fwd<HD>), smem);
-  if (err) return err;
-  dim3 grid(static_cast<unsigned>((sq + kRows - 1) / kRows), static_cast<unsigned>(b * heads));
-  flash_fwd<HD><<<grid, kWarps * 32, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                                 static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, lq, lk,
-                                                 lv, lout, heads, sq, skv, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-               float* delta, void* dq, void* dk, void* dv, int64_t bn, int64_t sq, int64_t skv, float scale,
+               float* stats, void* dq, void* dk, void* dv, int64_t bn, int64_t sq, int64_t skv, float scale,
                cudaStream_t st) {
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *dp = static_cast<const bf16*>(dout);
-  const int64_t rows = bn * sq;
-  const int64_t threads = rows * (HD / 8);
-  flash_delta<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(static_cast<const bf16*>(o), dp,
-                                                                                 delta, rows);
+  using Tk = DkvTile<HD>;
+  using Tq = DqTile<HD>;
+  const int64_t sq_pad = (sq + 127) / 128 * 128;
+  float* lse_pad = stats;
+  float* delta = stats + bn * sq_pad;
+  const int64_t threads = bn * sq_pad * (HD / 8);
+  flash_bwd_prep<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, lse_pad, delta, sq, sq_pad, bn * sq_pad);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
-  constexpr size_t smem_dq = Tile<HD>::kDqSmem, smem_dkv = Tile<HD>::kDkvSmem;
-  err = set_smem(reinterpret_cast<const void*>(flash_bwd_dq<HD>), smem_dq);
+  // Head-folded contiguous (BN, S, HD): rank-4 maps with one head.
+  const Layout lq{sq * HD, sq * HD, HD}, lk{skv * HD, skv * HD, HD};
+  CUtensorMap mk128, mv128, mq64, mdo64, mq128, mdo128, mkt, mvt;
+  err = make_tmap(&mk128, k, HD, skv, 1, bn, lk, Tk::kM);
+  if (!err) err = make_tmap(&mv128, v, HD, skv, 1, bn, lk, Tk::kM);
+  if (!err) err = make_tmap(&mq64, q, HD, sq, 1, bn, lq, Tk::kN);
+  if (!err) err = make_tmap(&mdo64, dout, HD, sq, 1, bn, lq, Tk::kN);
+  if (!err) err = make_tmap(&mq128, q, HD, sq, 1, bn, lq, Tq::kM);
+  if (!err) err = make_tmap(&mdo128, dout, HD, sq, 1, bn, lq, Tq::kM);
+  if (!err) err = make_tmap(&mkt, k, HD, skv, 1, bn, lk, Tq::kN);
+  if (!err) err = make_tmap(&mvt, v, HD, skv, 1, bn, lk, Tq::kN);
+  if (!err) err = set_smem(reinterpret_cast<const void*>(flash_bwd_dkv<HD>), Tk::kSmem);
+  if (!err) err = set_smem(reinterpret_cast<const void*>(flash_bwd_dq<HD>), Tq::kSmem);
   if (err) return err;
-  dim3 grid_q(static_cast<unsigned>((sq + kRows - 1) / kRows), static_cast<unsigned>(bn));
-  flash_bwd_dq<HD><<<grid_q, kWarps * 32, smem_dq, st>>>(qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dq), sq,
-                                                         skv, scale * kLog2e, scale);
+  const float c = scale * kLog2e;
+  dim3 grid_k(static_cast<unsigned>((skv + Tk::kM - 1) / Tk::kM), static_cast<unsigned>(bn));
+  flash_bwd_dkv<HD><<<grid_k, 384, Tk::kSmem, st>>>(mk128, mv128, mq64, mdo64, lse_pad, delta,
+                                                     static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                     static_cast<int>(sq), static_cast<int>(sq_pad),
+                                                     static_cast<int>(skv), c, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-
-  err = set_smem(reinterpret_cast<const void*>(flash_bwd_dkv<HD>), smem_dkv);
-  if (err) return err;
-  dim3 grid_k(static_cast<unsigned>((skv + kRows - 1) / kRows), static_cast<unsigned>(bn));
-  flash_bwd_dkv<HD><<<grid_k, kWarps * 32, smem_dkv, st>>>(qp, kp, vp, dp, lse, delta, static_cast<bf16*>(dk),
-                                                           static_cast<bf16*>(dv), sq, skv, scale * kLog2e, scale);
+  dim3 grid_q(static_cast<unsigned>((sq + Tq::kM - 1) / Tq::kM), static_cast<unsigned>(bn));
+  flash_bwd_dq<HD><<<grid_q, 384, Tq::kSmem, st>>>(mq128, mdo128, mkt, mvt, lse_pad, delta, static_cast<bf16*>(dq),
+                                                   static_cast<int>(sq), static_cast<int>(sq_pad),
+                                                   static_cast<int>(skv), c, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,27 +416,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 // The forward of kernels 5, 6 and 7. q (B, Sq, heads, hd), k, v (B, Skv,
 // heads, hd) and o (B, Sq, heads, hd) bf16, each given by its (batch, head,
-// row) element strides (s*[0], s*[1], s*[2]) with hd contiguous; lse
-// (B * heads, Sq) float32 out, or null for none. hd is 64 or 128.
+// row) element strides (s*[0], s*[1], s*[2]) with hd contiguous, base
+// addresses and strides multiples of 16 bytes; lse (B * heads, Sq) float32
+// out, or null for none. hd is 64 or 128.
 PT_EXPORT int pt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
                            int heads, long long sq, long long skv, int hd, float scale, const long long* sq_strides,
                            const long long* sk_strides, const long long* sv_strides, const long long* so_strides,
                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout lq{sq_strides[0], sq_strides[1], sq_strides[2]}, lk{sk_strides[0], sk_strides[1], sk_strides[2]},
       lv{sv_strides[0], sv_strides[1], sv_strides[2]}, lo{so_strides[0], so_strides[1], so_strides[2]};
-  if (hd == 64) return launch_fwd<64>(q, k, v, o, lse, lq, lk, lv, lo, b, heads, sq, skv, scale, st);
-  if (hd == 128) return launch_fwd<128>(q, k, v, o, lse, lq, lk, lv, lo, b, heads, sq, skv, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return flash_forward(hd, q, k, v, o, lse, lq, lk, lv, lo, b, heads, sq, skv, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
-// The forward's inputs, o and lse, the output gradient dout (BN, Sq, hd);
-// delta (BN, Sq) float32 scratch; dq, dk, dv out, shaped as q, k, v.
+// The forward's inputs, o and lse, the output gradient dout, all
+// contiguous (BN, Sq, hd) (k, v (BN, Skv, hd)); stats (2, BN, Sq rounded
+// up to 128) float32 scratch; dq, dk, dv out, shaped as q, k, v.
 PT_EXPORT int pt_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                           const float* lse, float* delta, void* dq, void* dk, void* dv, long long bn, long long sq,
+                           const float* lse, float* stats, void* dq, void* dk, void* dv, long long bn, long long sq,
                            long long skv, int hd, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, bn, sq, skv, scale, st);
-  if (hd == 128) return launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, bn, sq, skv, scale, st);
+  if (hd == 64) return launch_bwd<64>(q, k, v, o, dout, lse, stats, dq, dk, dv, bn, sq, skv, scale, st);
+  if (hd == 128) return launch_bwd<128>(q, k, v, o, dout, lse, stats, dq, dk, dv, bn, sq, skv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -151,8 +151,8 @@ def check_cuda(name: str, strided: bool = False, **tensors) -> None:
     """Raise unless every given tensor is a contiguous CUDA tensor whose
     data pointer is 16-byte aligned (the kernels load 16 bytes at a time),
     and, while grad mode is on, none requires grad. With strided=True a
-    tensor may be a view whose last axis is contiguous and whose other
-    strides are multiples of 16 bytes."""
+    tensor may be a view whose layout the caller checks itself (the flash
+    forward's TMA rule, flash.tma_operand)."""
     import torch
 
     if torch.is_grad_enabled():
@@ -166,9 +166,8 @@ def check_cuda(name: str, strided: bool = False, **tensors) -> None:
         if not t.is_cuda:
             raise ValueError(f"{name}: {key} is on {t.device}, expected a CUDA tensor")
         if strided:
-            if t.stride(-1) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:-1]):
-                raise ValueError(f"{name}: {key} strides {t.stride()} need a contiguous last axis and 16-byte rows")
-        elif not t.is_contiguous():
+            continue
+        if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{name}: {key} data pointer is not 16-byte aligned")

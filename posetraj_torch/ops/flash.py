@@ -1,6 +1,9 @@
 """Kernels 5, 6 and 7: flash attention over bf16 operands, head_dim 64 or
-128. The CUDA kernels are posetraj_torch/csrc/flash.cu, whose one forward
-kernel reads its operands by (batch, head, row) strides and serves all three.
+128. The CUDA kernels are posetraj_torch/csrc/flash.cu; its forward is the
+port's one flash-attention forward (csrc/flash_fwd.cuh, which kernel C
+launches too), reading its operands through TMA tensor maps built from
+their (batch, head, row) strides (`tma_operand` describes them), and serves
+all three.
 
 * Kernel 5, port of posetraj_tpu/ops/pallas_attention.py:flash_attention_diff:
   the forward `_flash_fwd_lse` and the backward `_flash_bwd` (its dq and dk/dv
@@ -25,12 +28,15 @@ tensors.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from posetraj_torch.ops import _native
 
 NAME = "flash"
 HEAD_DIMS = (64, 128)
+FWD_ROWS = 128  # rows of a q, k or v box of the forward (flash_fwd.cuh FwdTile)
 LOG2E = 1.4426950408889634
 
 # The plain versions materialise (folds, Sq, Skv) float32 logits; they walk
@@ -96,10 +102,39 @@ def _check(name, q, k, v, *more):
     _native.check_dtype(name, torch.bfloat16, q=q, k=k, v=v, **{f"arg{i}": t for i, t in enumerate(more)})
 
 
+class TmaOperand(NamedTuple):
+    """The rank-4 TMA tensor map the forward builds for one (B, S, N, d)
+    bf16 operand: dims innermost first (d, S, N, B), the byte strides of S,
+    N and B, the box (64 columns, `rows` rows of one head of one batch), and
+    the view's byte offset in its storage."""
+
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    offset: int
+
+
+def tma_operand(t: torch.Tensor, rows: int, name: str = "flash") -> TmaOperand:
+    """Describe a (B, S, N, d) view as the forward's tensor map. Raises
+    ValueError unless d is contiguous and the base address and every
+    stride are multiples of 16 bytes, as TMA requires. S keeps its own
+    axis, so a box that runs past S is zero-filled inside its (batch, head)
+    and never reads the next one's rows."""
+    b, s, n, d = t.shape
+    es = t.element_size()
+    strides = (t.stride(1) * es, t.stride(2) * es, t.stride(0) * es)
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}: the head_dim axis must be contiguous, strides {t.stride()}")
+    if t.data_ptr() % 16 or any(x % 16 for x in strides):
+        raise ValueError(f"{name}: base address {t.data_ptr():#x} and byte strides {strides} must be multiples of 16 "
+                         "(TMA)")
+    return TmaOperand((d, s, n, b), strides, (64, rows, 1, 1), t.storage_offset() * es)
+
+
 def _launch_fwd(q, k, v, scale: float, lse: bool, count: str):
     """The strided forward on (B, Sq, N, H) q and (B, Skv, N, H) k, v views
-    (last axis contiguous): o (B, Sq, N, H) bf16 and, if asked, lse
-    (B*N, Sq) float32."""
+    (last axis contiguous, 16-byte aligned): o (B, Sq, N, H) bf16 and, if
+    asked, lse (B*N, Sq) float32."""
     b, sq, n, d = q.shape
     skv = k.shape[1]
     if d not in HEAD_DIMS:
@@ -108,6 +143,8 @@ def _launch_fwd(q, k, v, scale: float, lse: bool, count: str):
         raise ValueError(f"{count}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
     _native.check_dtype(count, torch.bfloat16, q=q, k=k, v=v)
     _native.check_cuda(count, strided=True, q=q, k=k, v=v)
+    for t in (q, k, v):
+        tma_operand(t, FWD_ROWS, count)
     o = torch.empty((b, sq, n, d), device=q.device, dtype=q.dtype)
     out_lse = torch.empty((b * n, sq), device=q.device, dtype=torch.float32) if lse else None
     P, I, L, Fl, LP = _native.P, _native.I, _native.L, _native.Fl, _native.LP
@@ -128,19 +165,20 @@ def flash_fwd_kernel(q, k, v, scale: float):
 
 
 def flash_bwd_kernel(q, k, v, o, lse, do, scale: float):
-    """Kernel 5 backward on the card (delta, dq, dk/dv in three launches of
-    one call): (dq, dk, dv) bf16."""
+    """Kernel 5 backward on the card (delta and the padded lse, dk/dv, dq in
+    three launches of one call): (dq, dk, dv) bf16."""
     _check("flash_bwd", q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2] or lse.dtype != torch.float32:
         raise ValueError("flash_bwd: o, do, lse do not match q")
     _native.check_cuda("flash_bwd", q=q, k=k, v=v, o=o, lse=lse, do=do)
     bn, sq, d = q.shape
-    delta = torch.empty((bn, sq), device=q.device, dtype=torch.float32)
+    # lse and delta, each padded to whole 128-query blocks.
+    stats = torch.empty((2, bn, -(-sq // 128) * 128), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     P, I, L, Fl = _native.P, _native.I, _native.L, _native.Fl
     _native.call(
         NAME, "pt_flash_bwd", [P, P, P, P, P, P, P, P, P, P, L, L, L, I, Fl],
-        *(_native.ptr(t) for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+        *(_native.ptr(t) for t in (q, k, v, o, do, lse, stats, dq, dk, dv)),
         bn, sq, k.shape[1], d, float(scale), count="flash_bwd",
     )
     return dq, dk, dv

@@ -16,7 +16,9 @@ RMS (a few bf16 roundings on the way; bf16 keeps 8 bits). Kernel 5: o, dq,
 dk and dv within 3e-2 of the reference's max and 1e-2 in relative RMS, the
 base-2 lse within 2e-3 absolute (float32 logits of bf16 inputs on both
 sides). A dq from a kernel that dropped log2(e) would be off by far more.
-Kernels 6 and 7 take kernel 5's tolerances. Kernel 8: within 1e-2 of the
+Kernels 6 and 7 take kernel 5's tolerances, as does the one Hopper
+forward that C, 5, 6 and 7 share, held on each caller's layout with and
+without lse (test_cuda_flash_forward_layouts). Kernel 8: within 1e-2 of the
 reference's max and 2e-3 rel RMS in bf16 (one rounding apart), 1e-5 and
 1e-6 in float32 (summation order).
 """
@@ -96,9 +98,12 @@ def _flash_inputs(g, bn, sq, skv, d, sigma):
 
 
 # (BN, Sq, Skv, d): ragged S = 200 and 180 for the 128-row blocks and the
-# 64- and 32-column tiles, a rectangular Skv = 2 Sq, d = 64 and 128.
+# 64- and 128-row tiles, a rectangular Skv = 2 Sq, d = 64 and 128; then
+# ragged Sq and Skv that differ both ways (144, 333, 600) and the training
+# shape's S = 2880.
 FLASH_CASES = [(6, 200, 200, 64), (6, 180, 180, 64), (5, 180, 180, 128), (4, 200, 200, 128), (3, 256, 512, 64),
-               (2, 576, 576, 64)]
+               (2, 576, 576, 64), (3, 144, 600, 64), (2, 600, 144, 64), (2, 333, 200, 128), (2, 200, 333, 128),
+               (1, 2880, 2880, 64)]
 
 
 @pytest.mark.cuda
@@ -241,3 +246,58 @@ def test_cuda_layer_norm_matches_plain(m, c, dtype):
     _check(got, layernorm.layer_norm_plain(x, w, b, 1e-5), tol, rms_tol=rms_tol)
     with pytest.raises(RuntimeError, match="fused_ln"):
         layernorm.layer_norm(x, w.requires_grad_(True), b, 1e-5)
+
+
+def _forward_operands(g, layout, b, sq, skv, n, d):
+    """q (b, sq, n, d), k, v (b, skv, n, d) bf16 in one of the four layouts
+    the forward is launched on, logits of sd sqrt(ln(skv / 64)):
+    "folded" (kernel 5: head-folded (B*N, S, d) seen as (B*N, S, 1, d)),
+    "views" (kernel 7: (B, S, N, d) views of q, k, v tensors cut from wider
+    rows), "packed" (kernel 6: q, k, v views of one (B, S, 3C) projection)
+    and "scratch" (kernel C: slices of a (3, B, N, S, d) scratch)."""
+    sigma = math.sqrt(max(1.0, math.log(skv / 64)))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    if layout == "folded":
+        q, k, v = (rnd(b * n, s, d)[:, :, None] for s in (sq, skv, skv))
+    elif layout == "views":
+        q, k, v = (rnd(b, s, n, d + 16)[..., 8 : 8 + d] for s in (sq, skv, skv))
+    elif layout == "packed":
+        q, k, v = (t.unflatten(-1, (n, d)) for t in rnd(b, sq, 3 * n * d).split(n * d, dim=-1))
+    else:
+        q, k, v = (t.permute(0, 2, 1, 3) for t in rnd(3, b, n, sq, d))
+    return q * sigma**0.5, k * sigma**0.5, v
+
+
+# (layout, B, Sq, Skv, N, d): C's scratch at the attention's S of both
+# resolutions (9216, 2880, 720, 180, 144 and a ragged 200), every layout at
+# d 64 and 128, Sq != Skv both ways.
+FORWARD_CASES = [("scratch", 1, s, s, 2, 64) for s in (9216, 2880, 720, 180, 144, 200)] + [
+    ("folded", 2, 720, 720, 2, 128), ("folded", 2, 200, 456, 2, 64), ("views", 2, 456, 200, 3, 64),
+    ("views", 1, 180, 180, 2, 128), ("packed", 2, 144, 144, 2, 128), ("packed", 2, 600, 600, 3, 64),
+    ("scratch", 2, 200, 200, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("layout,b,sq,skv,n,d", FORWARD_CASES)
+def test_cuda_flash_forward_layouts(layout, b, sq, skv, n, d, with_lse):
+    """The one Hopper forward (kernels C, 5, 6, 7) on each caller's layout,
+    with and without lse, against the plain forward on head-folded copies;
+    o written as (B, Sq, N, d), which is (B, Sq, C) with head h at column
+    h d, as kernel C's out-projection reads it."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sq + skv + d + n)
+    q, k, v = _forward_operands(g, layout, b, sq, skv, n, d)
+    o, lse = flash._launch_fwd(q, k, v, d**-0.5, with_lse, "flash_tq")
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash.flash_fwd_plain(*(flash._fold(t) for t in (q, k, v)), d**-0.5)
+    _check(flash._fold(o), o_ref, 3e-2, rms_tol=1e-2)
+    assert o.shape == q.shape and o.is_contiguous()
+    if with_lse:
+        assert float((lse - lse_ref).abs().max()) <= 2e-3
+    else:
+        assert lse is None
+
