@@ -10,7 +10,8 @@ Phases, one line of output each (more for phases 2, 5 and 6):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
      libraries from posetraj_torch/csrc, one nvcc per source, in parallel;
      the count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
-     flash library's SASS, which must both be above 0;
+     SASS of the flash, mlp, qkvt and temporal libraries, which must all be
+     above 0;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (and the 320x576 ones, whose S is ragged for the attention
      tiles), bf16, with its error against the stated tolerance (for the
@@ -20,7 +21,10 @@ Phases, one line of output each (more for phases 2, 5 and 6):
      and, where one PyTorch call computes the same function, that call's
      time (none for B, C, D: no one call computes the sub-layer; C's
      attention core, the shared flash forward on C's scratch, and D's frame
-     attention are timed alone beside SDPA instead); kernel 5 (flash
+     attention are timed alone beside SDPA instead); B at each UNet level's
+     shape beside its two F.linear products, and in each variant at a
+     ragged row count; the Hopper GEMM of B, C and D alone at C's QKV and
+     out-projection shapes beside F.linear; kernel 5 (flash
      attention) forward (o, base-2 lse) and backward
      (dq, dk, dv) at the training shapes, a ragged, a rectangular and a
      head_dim 128 case; kernel 7 (forward-only flash attention) at the
@@ -83,6 +87,7 @@ FP32_FLOPS = 67e12
 
 KERNEL_META = {
     "groupnorm": ("posetraj_torch/csrc/groupnorm.cu", "posetraj_tpu/ops/pallas_groupnorm.py:209"),
+    "gemm": ("posetraj_torch/csrc/gemm.cuh", "posetraj_tpu/ops/pallas_qkvt.py:87"),
     "mlp": ("posetraj_torch/csrc/mlp.cu", "posetraj_tpu/ops/pallas_mlp.py:129"),
     "qkvt": ("posetraj_torch/csrc/qkvt.cu", "posetraj_tpu/ops/pallas_qkvt.py:367"),
     "temporal": ("posetraj_torch/csrc/temporal.cu", "posetraj_tpu/ops/pallas_temporal.py:299"),
@@ -165,7 +170,7 @@ def compare(got, want, tol: float, base=None, rms_tol=None):
 
 
 def check_kernels(torch, ops):
-    groupnorm, mlp, qkvt, temporal, flash, layernorm = ops
+    groupnorm, mlp, qkvt, temporal, flash, layernorm, gemm = ops
     F = torch.nn.functional
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(device=dev)
@@ -187,7 +192,7 @@ def check_kernels(torch, ops):
         wqkv[: 2 * c] *= sigma**0.5
         return (rnd(*shape, scale=0.1), *ln_params(c), wqkv, rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), c // 64)
 
-    rows, cores, ok_all = [], [], True
+    rows, cores, mlp_levels, gemm_shapes, ok_all = [], [], [], [], True
 
     def report(name, label, err, scale, rel_rms, ok, tol, rms_tol=None, branch=False):
         nonlocal ok_all
@@ -229,32 +234,79 @@ def check_kernels(torch, ops):
         del x2, a2
     torch.cuda.empty_cache()
 
-    # B: fused LN + GEGLU MLP. Timed shape: level-0 FF with the folded
-    # cross-attention vector, rows 28*9216, K 320, hidden 1280. Also checked:
-    # level 1 (K 640) and level 2 (K 1280), which take other row tiles. The
-    # check is on the MLP branch, out - (x + add).
+    # B: fused LN + GEGLU MLP on the Hopper GEMM, at the three UNet levels of
+    # 576x1024 with the addend the model folds in (rows 28*S, K 320, 640,
+    # 1280, hidden 4K), each timed beside its plain version and, as a
+    # yardstick, the two F.linear products alone (no one call computes B:
+    # library_ms is null); the JSON row is level 0. Then every variant at the
+    # ragged 320x576 level-1 rows 28*720 (the last 128-row tile holds 64):
+    # no LayerNorm, LayerNorm without residual, LayerNorm + residual +
+    # addend (G, 1, K) and (G, S_a, K). The check is on the MLP branch,
+    # out - (x + add).
     tol, rms_tol = 3e-2, 1e-2
-    for level, (m, k, add_shape) in enumerate(((28 * 9216, 320, (28, 1, 320)), (28 * 2304, 640, (2, 2304, 640)),
-                                               (28 * 576, 1280, (28, 1, 1280)))):
+    mlp_cases = [(f"level {lv}", m, k, True, True, a) for lv, (m, k, a) in
+                 enumerate(((28 * 9216, 320, (28, 1, 320)), (28 * 2304, 640, (2, 2304, 640)),
+                            (28 * 576, 1280, (28, 1, 1280))))]
+    mlp_cases += [("ragged, no LN", 28 * 720, 640, False, False, None), ("ragged, LN", 28 * 720, 640, True, False, None),
+                  ("ragged", 28 * 720, 640, True, True, (28, 1, 640)), ("ragged", 28 * 720, 640, True, True, (2, 720, 640))]
+    for case, (label, m, k, ln, res, add_shape) in enumerate(mlp_cases):
         n4 = 4 * k
-        args = (rnd(m, k), rnd(2 * n4, k, scale=k**-0.5), rnd(2 * n4, scale=0.1), rnd(k, n4, scale=n4**-0.5),
-                rnd(k, scale=0.1), *ln_params(k))
-        addm = rnd(*add_shape)
-        run_k = lambda: mlp.geglu_mlp_kernel(*args, 1e-5, True, addm)
-        run_p = lambda: mlp.geglu_mlp_plain(*args, 1e-5, True, addm)
-        err, scale, rel_rms, ok = compare(run_k(), run_p(), tol, mlp.broadcast_add_rows(args[0], addm), rms_tol)
-        report("mlp", f"rows={m} K={k} hidden={n4} +ln +res +add{add_shape}", err, scale, rel_rms, ok, tol,
-               rms_tol, branch=True)
-        if level == 0:
+        args = [rnd(m, k), rnd(2 * n4, k, scale=k**-0.5), rnd(2 * n4, scale=0.1), rnd(k, n4, scale=n4**-0.5),
+                rnd(k, scale=0.1), *(ln_params(k) if ln else (None, None))]
+        addm = rnd(*add_shape) if add_shape else None
+        run_k = lambda: mlp.geglu_mlp_kernel(*args, 1e-5, res, addm)
+        run_p = lambda: mlp.geglu_mlp_plain(*args, 1e-5, res, addm)
+        base = (mlp.broadcast_add_rows(args[0], addm) if addm is not None else args[0]) if res else None
+        err, scale, rel_rms, ok = compare(run_k(), run_p(), tol, base, rms_tol)
+        report("mlp", f"{label}: rows={m} K={k} hidden={n4}{' +ln' if ln else ''}{' +res' if res else ''}"
+               f"{f' +add{add_shape}' if add_shape else ''}", err, scale, rel_rms, ok, tol, rms_tol, branch=res)
+        if case < 3:
             ms, plain = cuda_ms(run_k), cuda_ms(run_p)
+            w1, w2 = args[1], args[3]
+            hid = rnd(m, n4)
+            linears = cuda_ms(lambda: (F.linear(args[0], w1), F.linear(hid, w2)))
+            del hid
             flops = 2 * m * k * 2 * n4 + 2 * m * n4 * k
             nbytes = 2 * (2 * m * k + 3 * n4 * k + addm.numel())
             bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
-            rows.append(dict(name="mlp", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                             library_ms=None))
-        else:
-            rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+            mlp_levels.append(dict(label=label, rows=m, k=k, ms=ms, plain_ms=plain, linears_ms=linears, bound_ms=bnd))
+            if case == 0:
+                mlp_row = dict(name="mlp", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                               library_ms=None)
+                rows.append(mlp_row)
+        mlp_row["max_abs_err"] = max(mlp_row["max_abs_err"], err)
         del args, addm
+    torch.cuda.empty_cache()
+
+    # The Hopper GEMM of B, C and D alone at C's QKV (LN(x) (M, C) by
+    # Wqkv (3C, C), stored) and out-projection (o by Wo (C, C) + bo + x)
+    # shapes at the three levels of 576x1024 (M = 28*S), beside F.linear of
+    # the same product (no residual add) as the library yardstick; the JSON
+    # row is the level-0 QKV product. Output within B's tolerances of the
+    # plain product.
+    for lv, (s_l, c) in enumerate(((9216, 320), (2304, 640), (576, 1280))):
+        m = 28 * s_l
+        a, o = rnd(m, c), rnd(m, c)
+        wq, wo, bo, x = rnd(3 * c, c, scale=c**-0.5), rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), rnd(m, c)
+        for what, args, lib_args in (("QKV", (a, wq), (a, wq)), ("out-proj +bias +res", (o, wo, bo, x), (o, wo, bo))):
+            run_k = lambda: gemm.linear_kernel(*args)
+            run_p = lambda: gemm.linear_plain(*args)
+            err, scale, rel_rms, ok = compare(run_k(), run_p(), tol, args[3] if len(args) > 3 else None, rms_tol)
+            n = args[1].shape[0]
+            report("gemm", f"{what} level {lv}: (M,N,K)=({m},{n},{c})", err, scale, rel_rms, ok, tol, rms_tol,
+                   branch=len(args) > 3)
+            ms, plain = cuda_ms(run_k), cuda_ms(run_p)
+            lib = cuda_ms(lambda: F.linear(*lib_args))
+            nbytes = 2 * (m * c + n * c + m * n * (2 if len(args) > 3 else 1) + (n if len(args) > 2 else 0))
+            bnd, by = bound_ms(nbytes, 2.0 * m * n * c, BF16_FLOPS)
+            gemm_shapes.append(dict(label=f"{what} level {lv}", shape=(m, n, c), ms=ms, plain_ms=plain, library_ms=lib,
+                                    bound_ms=bnd, bound_by=by))
+            if lv == 0 and what == "QKV":
+                rows.append(dict(name="gemm", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                 library_ms=lib))
+            else:
+                rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+        del a, o, wq, wo, bo, x
     torch.cuda.empty_cache()
 
     # C: spatial attention sub-layer at the three UNet levels of 576x1024 and
@@ -524,6 +576,12 @@ def check_kernels(torch, ops):
     for r in cores:
         say(f"  {r['name']:13s} {str(r['shape']):22s} ms={r['ms']:.4f} sdpa_ms={r['sdpa_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} (operations)")
+    for r in mlp_levels:
+        say(f"  mlp {r['label']}: rows={r['rows']} K={r['k']} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"two F.linear products {r['linears_ms']:.4f} bound_ms={r['bound_ms']:.4f} (operations)")
+    for r in gemm_shapes:
+        say(f"  gemm {r['label']:26s} (M,N,K)={r['shape']} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"F.linear {r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     return rows, ok_all
 
 
@@ -547,7 +605,7 @@ def plain_versions(ops):
     kernels 6 and 7 and kernel 8. No other attention() call of the model
     qualifies for kernel 5; the callers check that the plain runs launch
     nothing."""
-    groupnorm, mlp, qkvt, temporal, flash, layernorm = ops
+    groupnorm, mlp, qkvt, temporal, flash, layernorm, _ = ops
     return patched((groupnorm, "group_norm", groupnorm.group_norm_plain), (mlp, "geglu_mlp", mlp.geglu_mlp_plain),
                    (qkvt, "attn_sublayer", qkvt.attn_sublayer_plain),
                    (temporal, "temporal_attn_sublayer", temporal.temporal_attn_sublayer_plain),
@@ -623,10 +681,10 @@ def make_params(torch, bundle, seed):
 def _kernel_group(name: str) -> str:
     """The group of a device kernel's name in the step profile."""
     low = name.lower()
-    for key, group in (("gn_", "A groupnorm (port)"), ("mlp_kernel", "B mlp (port)"), ("ln_rows", "8 LayerNorm (port)"),
+    for key, group in (("gn_", "A groupnorm (port)"), ("mlp_gemm", "B mlp (port)"), ("ln_rows", "8 LayerNorm (port)"),
                        ("hopper_flash_fwd", "flash attention fwd (port: C's core, 5, 6, 7)"),
                        ("flash_bwd", "5 flash attention bwd (port)"), ("frame_attn", "D frame attention (port)"),
-                       ("gemm_kernel", "C/D projection GEMMs (port)"), ("row_stats", "C/D projection GEMMs (port)")):
+                       ("projection_gemm", "C/D projection GEMMs (port)")):
         if key in low:
             return group
     if "multi_tensor" in low or "adam" in low:
@@ -929,6 +987,22 @@ def run_pipeline(torch, native, bundle, params, steps, height, width):
     return outs, req_s, denoise_s, launches, torch.cuda.max_memory_allocated()
 
 
+# Launches per denoise step under the default KernelConfig at 14x576x1024
+# (ControlNet + UNet, CFG batch B*F = 28), from the code: 23 transformers
+# (ControlNet down 2+2+2 and mid 1, UNet down 2+2+2, mid 1, up 3+3+3), each
+# with one spatial (C) and one temporal (D) self-attention sub-layer, each
+# of those with two GEMM launches, and three GEGLU feed-forwards (B: ff,
+# ff_in and the temporal ff).
+DEFAULT_PER_STEP = {"mlp": 69, "qkvt": 23, "temporal": 23, "gemm": 92}
+# Launches of PyTorch's matrix products (cuBLAS) in one default step: 347
+# and 349 in two H100 runs of the same model code (proj_in/out, the
+# one-token cross-attentions, the temporal conv's taps; cuBLAS picks its
+# kernels, some in two launches, run by run; PERF.md). A product of B, C or
+# D sent to a library would add at least 23 (C's and D's run 23 times a
+# step, B's 69), so the step is held below 347 + 23.
+CUBLAS_PER_STEP = 347
+CUBLAS_MARGIN = 23
+
 # The un-fused configuration of phase 6: spatial and temporal self-attention
 # outside kernels C and D, the FF's LayerNorm outside kernel B, and every
 # standalone LayerNorm in kernel 8.
@@ -943,10 +1017,11 @@ UNFUSED = dict(qkvt_attn=False, temporal_attn=False, fused_ff_ln=False, fused_ln
 #     temporal norm_in, norm1, norm3) where the rows 28*S reach 4096, i.e.
 #     levels 0-2, 21 transformers: 105. (The mid blocks' 28*45 = 1260 rows
 #     stay on PyTorch; norm2 is skipped before a one-token cross-attention.)
-#   qkvt, temporal, flash_fwd, flash_bwd, flash_qkv: 0.
+#   qkvt, temporal (and so C's and D's GEMMs), flash_fwd, flash_bwd,
+#   flash_qkv: 0.
 # CLIP (257 tokens) and the VAE (head_dim 512, no LayerNorm) add none.
-UNFUSED_PER_STEP = {"flash_tq": 14, "layernorm": 105, "qkvt": 0, "temporal": 0, "flash_fwd": 0, "flash_bwd": 0,
-                    "flash_qkv": 0}
+UNFUSED_PER_STEP = {"flash_tq": 14, "layernorm": 105, "qkvt": 0, "temporal": 0, "gemm": 0, "flash_fwd": 0,
+                    "flash_bwd": 0, "flash_qkv": 0}
 
 
 def un_fused_check(torch, ops, native, bundle, params, steps, card):
@@ -1013,12 +1088,12 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         from posetraj_torch.configs import KernelConfig
-        from posetraj_torch.ops import _native, flash, groupnorm, layernorm, mlp, qkvt, temporal
+        from posetraj_torch.ops import _native, flash, gemm, groupnorm, layernorm, mlp, qkvt, temporal
         from posetraj_torch.pipeline import ModelBundle
     except ImportError as e:
         fail(f"cannot import posetraj_torch next to this script ({e})")
-    ops = (groupnorm, mlp, qkvt, temporal, flash, layernorm)
-    inference_kernels = ("groupnorm", "mlp", "qkvt", "temporal")
+    ops = (groupnorm, mlp, qkvt, temporal, flash, layernorm, gemm)
+    inference_kernels = ("groupnorm", "mlp", "qkvt", "temporal", "gemm")
     training_kernels = inference_kernels + ("flash_fwd", "flash_bwd")
     off_default = ("flash_fwd", "flash_bwd", "flash_qkv", "flash_tq", "layernorm")
     t_start = time.perf_counter()
@@ -1036,14 +1111,16 @@ def main() -> None:
         regs = [ln.strip() for ln in _native.build_log(name).splitlines() if "registers" in ln]
         say(f"  build {name}: {'; '.join(regs) if regs else 'cached'}")
     # The flash library (the forward of C, 5, 6, 7 and kernel 5's backward)
-    # must run on wgmma fed by TMA: count both in its SASS.
+    # and the libraries of B, C and D (the Hopper GEMM) must run on wgmma fed
+    # by TMA: count both in their SASS.
     cuobjdump = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_native._lib_path("flash"))], capture_output=True, text=True,
-                          timeout=300).stdout
-    hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
-    say(f"  flash library SASS: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
-    if not hgmma or not utmaldg:
-        fail("the flash library has no HGMMA or no UTMALDG instruction: it is not on wgmma and TMA")
+    for name in ("flash", "mlp", "qkvt", "temporal"):
+        sass = subprocess.run([cuobjdump, "-sass", str(_native._lib_path(name))], capture_output=True, text=True,
+                              timeout=300).stdout
+        hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+        say(f"  {name} library SASS: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
+        if not hgmma or not utmaldg:
+            fail(f"the {name} library has no HGMMA or no UTMALDG instruction: it is not on wgmma and TMA")
     say(f"phase 1: {torch.cuda.get_device_name(0)} | {card} | kernels built in {build_s:.1f} s")
 
     # Phase 2
@@ -1063,17 +1140,21 @@ def main() -> None:
     # uniform must move it by more than that tolerance: otherwise the check
     # could not see a fault in kernels C and D.
     step_tol, step_rms_tol = 5e-2, 3e-2
+    cublas = st["profile"][1].get("matmul (cuBLAS)", (0.0, 0))[1]
     step_ok = (st["finite"] and st["err"] <= step_tol * max(st["scale"], 1.0) and st["rel_rms"] <= step_rms_tol
                and st["attn_effect"] > step_rms_tol and not any(st["per_step"][k] for k in off_default)
-               and st["plain_launches"] == 0)
+               and all(st["per_step"][k] == n for k, n in DEFAULT_PER_STEP.items())
+               and cublas < CUBLAS_PER_STEP + CUBLAS_MARGIN and st["plain_launches"] == 0)
     say(f"phase 3: one denoise step 14x576x1024 CFG: max_abs_err={st['err']:.4g} (|ref|max {st['scale']:.3g}, "
         f"tol {step_tol:g}x) rel_rms={st['rel_rms']:.3g} (tol {step_rms_tol:g}) uniform-attention "
         f"rel_rms={st['attn_effect']:.3g} (must exceed {step_rms_tol:g}) launches/step={st['per_step']} "
+        f"(predicted {DEFAULT_PER_STEP}; cuBLAS {cublas}, below {CUBLAS_PER_STEP + CUBLAS_MARGIN}) "
         f"step {st['step_s']:.3f} s (plain {st['plain_s']:.3f} s, {st['plain_launches']} launches) "
         f"{'ok' if step_ok else 'FAIL'}")
     print_profile(f"profile of one kernel step on {card}", st["profile"])
     if not step_ok:
-        fail("the kernel step disagrees with the plain step, or cannot see the attention")
+        fail("the kernel step disagrees with the plain step, cannot see the attention, or launched other kernels "
+             "than predicted")
 
     # Phase 4
     outs, req_s, denoise_s, launches, peak = run_pipeline(torch, _native, bundle, params, args.steps, 576, 1024)

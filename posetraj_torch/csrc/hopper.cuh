@@ -1,4 +1,5 @@
-// Hopper building blocks shared by the flash-attention kernels (sm_90a):
+// Hopper building blocks shared by the flash-attention kernels and the GEMM
+// of kernels B, C and D (gemm.cuh) (sm_90a):
 // host-built TMA tensor maps, TMA loads that complete on an mbarrier, the
 // mbarrier ring's init / arrive / expect-tx / wait, wgmma shared-memory
 // descriptors for 128-byte-swizzled tiles, fence / commit / wait, the wgmma

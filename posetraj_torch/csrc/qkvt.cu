@@ -1,15 +1,17 @@
 // Kernel C: the spatial self-attention sub-layer,
 //   out = x + to_out(MHA(LN(x))),  x (B, S, C) bf16, head_dim 64,
 // in one C call of four launches:
-//   1. row LayerNorm statistics, then the GEMM LN(x) @ Wqkv^T with the
-//      normalisation applied to each staged tile, scattered to per-head q,
-//      k, v, each (B, heads, S, 64) contiguous (gemm.cuh);
-//   2. the port's one flash-attention forward (flash_fwd.cuh: wgmma from
+//   1. the row LayerNorm of x, written once into the o scratch (gemm.cuh
+//      rows_prologue);
+//   2. the port's Hopper GEMM (gemm.cuh) LN(x) @ Wqkv^T, its epilogue
+//      scattering per-head q, k, v, each (B, heads, S, 64) contiguous;
+//   3. the port's one flash-attention forward (flash_fwd.cuh: wgmma from
 //      TMA-fed shared memory, a producer warpgroup and two consumer
 //      warpgroups of 64 queries, 128-key tiles in a three-stage mbarrier
 //      ring), reading q, k, v from that scratch and writing o as (B, S, C)
 //      with head h at columns [64 h, 64 h + 64);
-//   3. GEMM o @ Wo^T + bo + x, the residual fused into the epilogue.
+//   4. the GEMM o @ Wo^T + bo + x, the residual tile loaded by TMA.
+// Also exports pt_gemm, the GEMM alone (ops/gemm.py).
 //
 // Replaces posetraj_tpu/ops/pallas_qkvt.py:attn_sublayer (ln_qkvt_proj,
 // qkvt_attention/_qkvt_attn_kernel and out_proj_res). The TPU version's
@@ -37,18 +39,18 @@ constexpr int kHd = 64;  // head_dim
 
 // x, out: (B, S, C); wqkv: (3C, C) = [Wq; Wk; Wv] (out, in); wo: (C, C);
 // bo: (C,); ln_w, ln_b: (C,) float32; qkv scratch (3, B, heads, S, 64);
-// o scratch (B, S, C); stats scratch (B*S, 2) float32. All bf16 except the
-// LayerNorm parameters and stats.
+// o scratch (B, S, C), which holds LN(x) until the attention writes o. All
+// bf16 except the LayerNorm parameters.
 PT_EXPORT int pt_attn_sublayer(const void* x, const float* ln_w, const float* ln_b, const void* wqkv,
-                               const void* wo, const void* bo, void* qkv, void* o, float* stats, void* out,
-                               long long b, long long s, int c, int heads, float eps, float scale, void* stream) {
+                               const void* wo, const void* bo, void* qkv, void* o, void* out, long long b,
+                               long long s, int c, int heads, float eps, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t m = b * s;
-  gemm::Args p1 = gemm::make_args(x, wqkv, ln_w, ln_b, qkv, m, 3 * c, c, gemm::kHeads);
-  p1.s = s;
-  p1.heads = heads;
-  p1.head_dim = kHd;
-  int err = gemm::launch(p1, reinterpret_cast<float2*>(stats), eps, st);
+  int err = gemm::rows_prologue<gemm::projection_gemm>(x, nullptr, 1, 1, ln_w, ln_b, eps, o, nullptr, m, c, st);
+  gemm::Epilogue ep = gemm::epilogue(gemm::kHeads);
+  ep.s = static_cast<int>(s);
+  ep.c = c;
+  if (!err) err = gemm::linear<gemm::projection_gemm>(o, wqkv, qkv, nullptr, ep, m, 3 * c, c, st);
   if (err) return err;
 
   const int64_t head_elems = b * heads * s * kHd;
@@ -57,11 +59,14 @@ PT_EXPORT int pt_attn_sublayer(const void* x, const float* ln_w, const float* ln
   err = flash_forward(kHd, qp, qp + head_elems, qp + 2 * head_elems, o, nullptr, lqkv, lqkv, lqkv, lo, b, heads, s,
                       s, scale, st);
   if (err) return err;
+  return gemm::linear<gemm::projection_gemm>(o, wo, out, x, gemm::epilogue(gemm::kBiasResidual, bo), m, c, c, st);
+}
 
-  gemm::Args p3 = gemm::make_args(o, wo, nullptr, nullptr, out, m, c, c, gemm::kBiasResidual);
-  p3.bias = static_cast<const bf16*>(bo);
-  p3.residual = static_cast<const bf16*>(x);
-  err = gemm::launch(p3, nullptr, 0.f, st);
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
+// out (M, N) = a (M, K) @ w (N, K)^T [+ bias (N,)] [+ residual (M, N)], all
+// bf16; K % 8 == 0 and N % 8 == 0.
+PT_EXPORT int pt_gemm(const void* a, const void* w, const void* bias, const void* residual, void* out, long long m,
+                      int n, int k, void* stream) {
+  const int mode = bias == nullptr && residual == nullptr ? gemm::kStore : gemm::kBiasResidual;
+  return gemm::linear<gemm::projection_gemm>(a, w, out, residual, gemm::epilogue(mode, bias), m, n, k,
+                                             static_cast<cudaStream_t>(stream));
 }

@@ -1,17 +1,18 @@
 // Kernel D: the temporal (frame-axis) self-attention sub-layer,
 //   out = x + to_out(frame_attention(LN(x))),  x (B, F, S, C) bf16,
 // attention over the F frames of each pixel, head_dim 64, in four launches:
-//   1. row LayerNorm statistics, then the GEMM LN(x) @ Wqkv^T -> qkv
-//      (B, F, S, 3C), normalised tile by tile in shared memory (gemm.cuh);
+//   1. the row LayerNorm of x, written once into the o scratch, then the
+//      port's Hopper GEMM (gemm.cuh) LN(x) @ Wqkv^T -> qkv (B, F, S, 3C);
 //   2. frame attention (below): one warp per (batch, pixel, head) loads the
 //      F x 64 q, k and v rows, computes the F x F logits, an exact float32
 //      softmax and P @ V, and writes o (B, F, S, C);
-//   3. GEMM o @ Wo^T + bo + x, the residual fused into the epilogue.
+//   3. the GEMM o @ Wo^T + bo + x, the residual tile loaded by TMA.
 //
 // Replaces posetraj_tpu/ops/pallas_temporal.py:temporal_attn_sublayer
 // (ln_qkvt_proj4, frame_attention_t/_frame_attn_kernel and out_proj_res4).
 //
-// Bound on the H100: the two projections are operation-bound GEMMs; the
+// Bound on the H100: the two projections are GEMMs (bytes-bound at C = 320,
+// operation-bound at C = 1280); the
 // frame attention is bytes-bound (F = 14: ~2*14*64 multiply-adds per 2-byte
 // element read), so it reads q/k/v once, coalesced (a warp reads each
 // 128-byte head row in one transaction), keeps the F x F logits in shared
@@ -98,17 +99,17 @@ __global__ void frame_attn(const bf16* __restrict__ qkv, bf16* __restrict__ o, i
 }  // namespace
 
 // x, out: (B, F, S, C); wqkv: (3C, C); wo: (C, C); bo: (C,); ln_w, ln_b: (C,)
-// float32; qkv scratch (B, F, S, 3C); o scratch (B, F, S, C); stats scratch
-// (B*F*S, 2) float32. Requires head_dim 64 and F <= 32 (checked by the
-// Python wrapper).
+// float32; qkv scratch (B, F, S, 3C); o scratch (B, F, S, C), which holds
+// LN(x) until the frame attention writes o. Requires head_dim 64 and F <= 32
+// (checked by the Python wrapper).
 PT_EXPORT int pt_temporal_sublayer(const void* x, const float* ln_w, const float* ln_b, const void* wqkv,
-                                   const void* wo, const void* bo, void* qkv, void* o, float* stats, void* out,
-                                   long long b, int f, long long s, int c, int heads, float eps, float scale,
-                                   void* stream) {
+                                   const void* wo, const void* bo, void* qkv, void* o, void* out, long long b,
+                                   int f, long long s, int c, int heads, float eps, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t m = b * f * s;
-  int err = gemm::launch(gemm::make_args(x, wqkv, ln_w, ln_b, qkv, m, 3 * c, c, gemm::kStore),
-                         reinterpret_cast<float2*>(stats), eps, st);
+  int err = gemm::rows_prologue<gemm::projection_gemm>(x, nullptr, 1, 1, ln_w, ln_b, eps, o, nullptr, m, c, st);
+  if (!err) err = gemm::linear<gemm::projection_gemm>(o, wqkv, qkv, nullptr, gemm::epilogue(gemm::kStore), m, 3 * c, c,
+                                                          st);
   if (err) return err;
 
   const size_t per_warp = sizeof(float) * warp_floats(f);
@@ -120,10 +121,7 @@ PT_EXPORT int pt_temporal_sublayer(const void* x, const float* ln_w, const float
   frame_attn<<<static_cast<unsigned>(blocks), wpb * 32, wpb * per_warp, st>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(o), b, f, s, c, heads, scale * 1.4426950408889634f);
 
-  gemm::Args p3 = gemm::make_args(o, wo, nullptr, nullptr, out, m, c, c, gemm::kBiasResidual);
-  p3.bias = static_cast<const bf16*>(bo);
-  p3.residual = static_cast<const bf16*>(x);
-  err = gemm::launch(p3, nullptr, 0.f, st);
+  err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  return static_cast<int>(cudaGetLastError());
+  return gemm::linear<gemm::projection_gemm>(o, wo, out, x, gemm::epilogue(gemm::kBiasResidual, bo), m, c, c, st);
 }

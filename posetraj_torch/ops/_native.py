@@ -10,7 +10,8 @@ Every wrapper counts its launches in `LAUNCHES[name]`: one per call that
 launched its kernel on the card, none for a call that ran the plain version.
 The flash library serves four counters: kernel 5's forward and backward
 (`flash_fwd`, `flash_bwd`), kernel 6 (`flash_qkv`) and kernel 7
-(`flash_tq`).
+(`flash_tq`). The GEMM of gemm.cuh counts under `gemm` where kernels C and D
+launch it (two launches a call) and where ops/gemm.py launches it alone.
 
 A launcher writes into fresh outputs that autograd knows nothing of, so
 `check_cuda` refuses a tensor that requires grad while grad mode is on: a
@@ -32,7 +33,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("groupnorm", "mlp", "qkvt", "temporal", "flash", "layernorm")
-COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "flash_fwd", "flash_bwd", "flash_qkv", "flash_tq", "layernorm")
+COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "gemm", "flash_fwd", "flash_bwd", "flash_qkv", "flash_tq",
+            "layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -127,10 +129,11 @@ def longs(*values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*values)
 
 
-def call(name: str, fn: str, argtypes, *args, count: str = "") -> None:
+def call(name: str, fn: str, argtypes, *args, count: str = "", also=()) -> None:
     """Call one C entry point of a kernel library on PyTorch's current
     stream (the stream is passed last) and raise if it reports a CUDA error.
-    Counts one launch of `count`, by default of `name`."""
+    Counts one launch of `count`, by default of `name`, and the launches
+    `also` names as (counter, launches) pairs."""
     import torch
 
     lib = library(name)
@@ -141,6 +144,8 @@ def call(name: str, fn: str, argtypes, *args, count: str = "") -> None:
     if err != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA error {err}: {lib.pt_error_string(err).decode()}")
     LAUNCHES[count or name] += 1
+    for key, n in also:
+        LAUNCHES[key] += n
 
 
 def ptr(t) -> P:

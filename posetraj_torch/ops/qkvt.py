@@ -1,8 +1,9 @@
 """Kernel C: the spatial self-attention sub-layer x + to_out(MHA(LN(x))).
 
 Port of posetraj_tpu/ops/pallas_qkvt.py:attn_sublayer. The CUDA kernel is
-posetraj_torch/csrc/qkvt.cu (LN+QKV GEMM, flash attention, out-proj GEMM
-with the residual); `attn_sublayer_plain` is the same function in plain
+posetraj_torch/csrc/qkvt.cu (the LayerNorm pre-pass, the QKV GEMM, flash
+attention, the out-proj GEMM with the residual; both GEMMs are
+csrc/gemm.cuh's, counted under `gemm` as well); `attn_sublayer_plain` is the same function in plain
 PyTorch, attention included. `AttnSublayer` is its custom_vjp
 (_asl_fwd/_asl_bwd): the forward runs the kernel on the card and saves its
 inputs, the backward recomputes `attn_sublayer_ref`, whose attention()
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from posetraj_torch.ops import _native
+from posetraj_torch.ops import _native, gemm
 from posetraj_torch.ops.attention import attention, dot_product_attention
 from posetraj_torch.ops.recompute import recompute_vjp
 
@@ -84,23 +85,23 @@ def attn_sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5
 
 def attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
     b, s, c = x.shape
-    if c != num_heads * HEAD_DIM:
-        raise ValueError(f"attn_sublayer kernel: head_dim must be {HEAD_DIM} (C={c}, heads={num_heads})")
+    if c != num_heads * HEAD_DIM or c > gemm.MAX_K:
+        raise ValueError(f"attn_sublayer kernel: head_dim must be {HEAD_DIM} and C <= {gemm.MAX_K} (C={c}, "
+                         f"heads={num_heads})")
     if wqkv.shape != (3 * c, c) or wo.shape != (c, c) or bo.shape != (c,):
         raise ValueError("attn_sublayer kernel: weight shapes do not match")
     _native.check_dtype("attn_sublayer", torch.bfloat16, x=x, wqkv=wqkv, wo=wo, bo=bo)
     ln_w, ln_b = ln_w.float().contiguous(), ln_b.float().contiguous()
     _native.check_cuda("attn_sublayer", x=x, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, wo=wo, bo=bo)
     qkv = torch.empty((3, b, num_heads, s, HEAD_DIM), device=x.device, dtype=x.dtype)
-    o = torch.empty_like(x)
-    stats = torch.empty((b * s, 2), device=x.device, dtype=torch.float32)
+    o = torch.empty_like(x)  # LN(x), then the attention's output
     out = torch.empty_like(x)
     P, I, L, Fl = _native.P, _native.I, _native.L, _native.Fl
     _native.call(
         NAME, "pt_attn_sublayer",
-        [P, P, P, P, P, P, P, P, P, P, L, L, I, I, Fl, Fl],
+        [P, P, P, P, P, P, P, P, P, L, L, I, I, Fl, Fl],
         _native.ptr(x), _native.ptr(ln_w), _native.ptr(ln_b), _native.ptr(wqkv), _native.ptr(wo),
-        _native.ptr(bo), _native.ptr(qkv), _native.ptr(o), _native.ptr(stats), _native.ptr(out),
-        b, s, c, num_heads, float(eps), float(HEAD_DIM**-0.5),
+        _native.ptr(bo), _native.ptr(qkv), _native.ptr(o), _native.ptr(out),
+        b, s, c, num_heads, float(eps), float(HEAD_DIM**-0.5), also=((gemm.COUNT, 2),),
     )
     return out

@@ -2,8 +2,9 @@
 x + to_out(frame_attention(LN(x))) over x (B, F, S, C).
 
 Port of posetraj_tpu/ops/pallas_temporal.py:temporal_attn_sublayer. The
-CUDA kernel is posetraj_torch/csrc/temporal.cu (LN+QKV GEMM, per-pixel frame
-attention, out-proj GEMM with the residual); `temporal_attn_sublayer_plain`
+CUDA kernel is posetraj_torch/csrc/temporal.cu (the LayerNorm pre-pass, the
+QKV GEMM, per-pixel frame attention, the out-proj GEMM with the residual;
+both GEMMs are csrc/gemm.cuh's, counted under `gemm` as well); `temporal_attn_sublayer_plain`
 is the same function in plain PyTorch. `TemporalAttnSublayer` is its
 custom_vjp (_tas_fwd/_tas_bwd): kernel forward, plain recompute backward.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from posetraj_torch.ops import _native
+from posetraj_torch.ops import _native, gemm
 from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "temporal"
@@ -69,8 +70,9 @@ def temporal_attn_sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: flo
 
 def temporal_attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
     b, f, s, c = x.shape
-    if c != num_heads * HEAD_DIM:
-        raise ValueError(f"temporal kernel: head_dim must be {HEAD_DIM} (C={c}, heads={num_heads})")
+    if c != num_heads * HEAD_DIM or c > gemm.MAX_K:
+        raise ValueError(f"temporal kernel: head_dim must be {HEAD_DIM} and C <= {gemm.MAX_K} (C={c}, "
+                         f"heads={num_heads})")
     if f > MAX_FRAMES:
         raise ValueError(f"temporal kernel: at most {MAX_FRAMES} frames, got {f}")
     if wqkv.shape != (3 * c, c) or wo.shape != (c, c) or bo.shape != (c,):
@@ -79,15 +81,14 @@ def temporal_attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, e
     ln_w, ln_b = ln_w.float().contiguous(), ln_b.float().contiguous()
     _native.check_cuda("temporal_attn_sublayer", x=x, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, wo=wo, bo=bo)
     qkv = torch.empty((b, f, s, 3 * c), device=x.device, dtype=x.dtype)
-    o = torch.empty_like(x)
-    stats = torch.empty((b * f * s, 2), device=x.device, dtype=torch.float32)
+    o = torch.empty_like(x)  # LN(x), then the frame attention's output
     out = torch.empty_like(x)
     P, I, L, Fl = _native.P, _native.I, _native.L, _native.Fl
     _native.call(
         NAME, "pt_temporal_sublayer",
-        [P, P, P, P, P, P, P, P, P, P, L, I, L, I, I, Fl, Fl],
+        [P, P, P, P, P, P, P, P, P, L, I, L, I, I, Fl, Fl],
         _native.ptr(x), _native.ptr(ln_w), _native.ptr(ln_b), _native.ptr(wqkv), _native.ptr(wo),
-        _native.ptr(bo), _native.ptr(qkv), _native.ptr(o), _native.ptr(stats), _native.ptr(out),
-        b, f, s, c, num_heads, float(eps), float(HEAD_DIM**-0.5),
+        _native.ptr(bo), _native.ptr(qkv), _native.ptr(o), _native.ptr(out),
+        b, f, s, c, num_heads, float(eps), float(HEAD_DIM**-0.5), also=((gemm.COUNT, 2),),
     )
     return out

@@ -20,7 +20,9 @@ Kernels 6 and 7 take kernel 5's tolerances, as does the one Hopper
 forward that C, 5, 6 and 7 share, held on each caller's layout with and
 without lse (test_cuda_flash_forward_layouts). Kernel 8: within 1e-2 of the
 reference's max and 2e-3 rel RMS in bf16 (one rounding apart), 1e-5 and
-1e-6 in float32 (summation order).
+1e-6 in float32 (summation order). The Hopper GEMM of B, C and D
+(csrc/gemm.cuh), held on B's variants and alone on each epilogue at ragged
+M, N and K, takes B's tolerances.
 """
 
 import math
@@ -28,7 +30,7 @@ import math
 import pytest
 import torch
 
-from posetraj_torch.ops import _native, flash, groupnorm, layernorm, mlp, qkvt, temporal
+from posetraj_torch.ops import _native, flash, gemm, groupnorm, layernorm, mlp, qkvt, temporal
 
 
 def _need_cuda():
@@ -301,3 +303,94 @@ def test_cuda_flash_forward_layouts(layout, b, sq, skv, n, d, with_lse):
     else:
         assert lse is None
 
+
+
+# (rows, K, variant) for kernel B on the Hopper GEMM: every variant of the
+# four JAX entry points ("plain": no LayerNorm; "ln"; "ln_res"; "add1" and
+# "addS": LayerNorm, residual and an addend (G, 1, K) or (G, S_a, K)), K of
+# the three UNet levels, rows that leave a ragged 128-row tile (1000, 520)
+# and the 320x576 level-1 shape 28 * 720.
+MLP_CASES = [(1000, 320, "plain"), (1000, 320, "ln"), (1000, 320, "ln_res"), (1000, 320, "add1"),
+             (1000, 640, "addS"), (520, 1280, "add1"), (28 * 720, 640, "addS")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,variant", MLP_CASES)
+def test_cuda_geglu_mlp_variants(m, k, variant):
+    """Kernel B (the row pre-pass and two GEMM launches) against its plain
+    version on the branch, one `mlp` launch a call."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    n = 4 * k
+    args = [rnd(m, k), rnd(2 * n, k, scale=k**-0.5), rnd(2 * n, scale=0.1), rnd(k, n, scale=n**-0.5),
+            rnd(k, scale=0.1), rnd(k, dtype=torch.float32) * 0.1 + 1, rnd(k, dtype=torch.float32) * 0.1]
+    if variant == "plain":
+        args[5:] = [None, None]
+    residual = variant not in ("plain", "ln")
+    add = {"add1": lambda: rnd(10 if m == 1000 else 4, 1, k), "addS": lambda: rnd(2, 100 if m == 1000 else 720, k)
+           }.get(variant, lambda: None)()
+    _native.reset_launches()
+    got = mlp.geglu_mlp_kernel(*args, 1e-5, residual, add)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["mlp"] == 1 and got.shape == (m, k)
+    base = (mlp.broadcast_add_rows(args[0], add) if add is not None else args[0]) if residual else None
+    _check(got, mlp.geglu_mlp_plain(*args, 1e-5, residual, add), 3e-2, base, 1e-2)
+
+
+# (M, N, K, bias, residual) for the GEMM alone: C's and D's QKV and
+# out-projection widths; N that pads its last tile (200, 72); K that is not
+# a multiple of the 64-column stage (72, 200); M that leaves the second
+# warpgroup of the last tile one row or none (1000, 65, 64).
+GEMM_CASES = [(1000, 960, 320, False, False), (333, 320, 1280, True, True), (777, 1920, 640, False, False),
+              (129, 200, 64, True, False), (65, 128, 72, False, True), (64, 72, 200, True, True),
+              (300, 3840, 1280, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,bias,residual", GEMM_CASES)
+def test_cuda_gemm_epilogues(m, n, k, bias, residual):
+    """The Hopper GEMM alone (store, bias, bias + residual) against
+    F.linear, one `gemm` launch a call."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    a, w = rnd(m, k), rnd(n, k, scale=k**-0.5)
+    b = rnd(n, scale=0.1) if bias else None
+    r = rnd(m, n, scale=0.1) if residual else None
+    _native.reset_launches()
+    got = gemm.linear_kernel(a, w, b, r)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["gemm"] == 1 and got.shape == (m, n)
+    _check(got, gemm.linear_plain(a, w, b, r), 3e-2, r, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [("qkvt", (3, 45, 128)), ("qkvt", (2, 130, 192)), ("temporal", (2, 3, 45, 128))])
+def test_cuda_sublayer_gemm_epilogues(kind, shape):
+    """C's per-head scatter where S < 64 (one warpgroup's 64 rows span two
+    or more batches, stored by TMA at negative S coordinates) and at a
+    ragged S, and D's plain store, on the branch; two `gemm` launches a
+    call."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    c = shape[-1]
+
+    def rnd(*s, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*s, generator=g, device="cuda") * scale).to(dtype)
+
+    a = (rnd(*shape, scale=0.1), rnd(c, dtype=torch.float32) * 0.1 + 1, rnd(c, dtype=torch.float32) * 0.1,
+         rnd(3 * c, c, scale=c**-0.5) * 1.5, rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), c // 64)
+    mod, kern, plain = ((qkvt, qkvt.attn_sublayer_kernel, qkvt.attn_sublayer_plain) if kind == "qkvt" else
+                        (temporal, temporal.temporal_attn_sublayer_kernel, temporal.temporal_attn_sublayer_plain))
+    _native.reset_launches()
+    got = kern(*a)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES[kind] == 1 and _native.LAUNCHES["gemm"] == 2
+    _check(got, plain(*a), 3e-2, a[0], 1e-2)
