@@ -10,8 +10,8 @@ Phases, one line of output each (more for phases 2, 5 and 6):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
      libraries from posetraj_torch/csrc, one nvcc per source, in parallel;
      the count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
-     SASS of the flash, mlp, qkvt and temporal libraries, which must all be
-     above 0;
+     SASS of the flash, mlp, qkvt and temporal libraries, and of HMMA
+     (mma.sync) and UTMALDG in D's frame_attn, which must all be above 0;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (and the 320x576 ones, whose S is ragged for the attention
      tiles), bf16, with its error against the stated tolerance (for the
@@ -21,7 +21,9 @@ Phases, one line of output each (more for phases 2, 5 and 6):
      and, where one PyTorch call computes the same function, that call's
      time (none for B, C, D: no one call computes the sub-layer; C's
      attention core, the shared flash forward on C's scratch, and D's frame
-     attention are timed alone beside SDPA instead); B at each UNet level's
+     attention are timed alone beside SDPA instead; D's frame attention is
+     also checked alone at each level and has its own row); A at five
+     shapes (one a ragged row count) and its VAE shapes; B at each UNet level's
      shape beside its two F.linear products, and in each variant at a
      ragged row count; the Hopper GEMM of B, C and D alone at C's QKV and
      out-projection shapes beside F.linear; kernel 5 (flash
@@ -31,12 +33,15 @@ Phases, one line of output each (more for phases 2, 5 and 6):
      un-fused path's shapes and a ragged rectangular one; kernel 6 (packed
      QKV, head_dim 128) with its lse and its gradient through
      FlashAttentionQKV; kernel 8 (row LayerNorm) at three widths in bf16
-     and one in float32;
+     and one in float32; then the gates of C and D: spatial and temporal
+     blocks at head_dim 16 and 128 run without C or D and agree with the
+     plain block, and a direct call at head_dim 16 still raises;
   3. one denoise step (ControlNet -> UNet, CFG batch) at full SVD width and
      14x576x1024, with the kernels and with the plain versions (attention()
      included), compared, and with uniform attention, to show the comparison
      can see kernels C and D; the kernel step once more under
-     torch.profiler, its device time grouped by kernel;
+     torch.profiler, its device time grouped by kernel (kernel A's device
+     launches must equal its calls: one launch a call);
   4. SVDControlNetPipeline at full width (UNet 320..1280, ViT-H CLIP, VAE
      128..512), 14x576x1024 with CFG, two requests; launch counts of every
      kernel over that run, output checked for shape, finiteness and range;
@@ -91,6 +96,7 @@ KERNEL_META = {
     "mlp": ("posetraj_torch/csrc/mlp.cu", "posetraj_tpu/ops/pallas_mlp.py:129"),
     "qkvt": ("posetraj_torch/csrc/qkvt.cu", "posetraj_tpu/ops/pallas_qkvt.py:367"),
     "temporal": ("posetraj_torch/csrc/temporal.cu", "posetraj_tpu/ops/pallas_temporal.py:299"),
+    "frame_attn": ("posetraj_torch/csrc/temporal.cu", "posetraj_tpu/ops/pallas_temporal.py:178"),
     "flash_fwd": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:439"),
     "flash_bwd": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:484"),
     "flash_tq": ("posetraj_torch/csrc/flash.cu", "posetraj_tpu/ops/pallas_attention.py:183"),
@@ -203,8 +209,10 @@ def check_kernels(torch, ops):
 
     # A: GroupNorm. Timed shape: UNet level-0 resnet norm2 with the temb fold
     # and SiLU, (28, 72, 128, 320) bf16. Also checked: the temporal resnet's
-    # per-frame fold, the float32 VAE encode, and a full-resolution VAE
-    # decode chunk (14, 576, 1024, 128) of more than 2^28 elements.
+    # per-frame fold, a ragged row count (1517 rows a sample, which no team
+    # of the schedule divides evenly), the float32 VAE encode, and a
+    # full-resolution VAE decode chunk (14, 576, 1024, 128) of more than
+    # 2^28 elements (one team, the second read from HBM).
     tol = 2e-2
     w, b = ln_params(320)
     x, add = rnd(28, 72, 128, 320), rnd(28, 320)
@@ -221,6 +229,7 @@ def check_kernels(torch, ops):
                      library_ms=lib))
     for label, xs, a_shape, dtype, eps in (
         ("(2,14,72,128,320) bf16 per-frame temb", (2, 14, 72, 128, 320), (2, 14, 320), bf, 1e-6),
+        ("(5,37,41,320) bf16 ragged rows +temb", (5, 37, 41, 320), (5, 320), bf, 1e-5),
         ("(1,576,1024,128) float32 (VAE encode)", (1, 576, 1024, 128), None, torch.float32, 1e-6),
         ("(14,576,1024,128) bf16 (VAE decode, >2^28)", (14, 576, 1024, 128), None, bf, 1e-6),
     ):
@@ -359,7 +368,8 @@ def check_kernels(torch, ops):
         ms = cuda_ms(run_k, reps=5, inner=2)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(scratch[0], scratch[1], scratch[2]), reps=5, inner=2)
         bnd, _ = bound_ms(2 * 4 * bsz * heads * s * 64, 4.0 * bsz * heads * s * s * 64, BF16_FLOPS)
-        cores.append(dict(name="qkvt core", shape=(bsz, heads, s, 64), ms=ms, sdpa_ms=lib, bound_ms=bnd))
+        cores.append(dict(name="qkvt core", shape=(bsz, heads, s, 64), ms=ms, sdpa_ms=lib, bound_ms=bnd,
+                          bound_by="operations", where="alone"))
         del scratch, qc, kc, vc
     torch.cuda.empty_cache()
 
@@ -382,18 +392,42 @@ def check_kernels(torch, ops):
             bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
             rows.append(dict(name="temporal", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                              library_ms=None))
-            # D's frame-attention core alone (its kernel's device time in
-            # the sub-layer, from torch.profiler) beside SDPA on the same
-            # (2 S, heads, 14, 64) view.
-            core = profiled_kernel_ms(torch, run_k, "frame_attn")
-            q = rnd(2 * s, heads, f, 64)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, q, q))
-            bnd, _ = bound_ms(2 * 4 * 2 * s * heads * f * 64, 4.0 * 2 * s * heads * f * f * 64, BF16_FLOPS)
-            cores.append(dict(name="temporal core", shape=(2 * s, heads, f, 64), ms=core, sdpa_ms=lib, bound_ms=bnd))
-            del q
+            # D's frame-attention core inside the sub-layer (its kernel's
+            # device time, from torch.profiler).
+            core_in_d = profiled_kernel_ms(torch, run_k, "frame_attn")
         else:
             rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
         del a
+    torch.cuda.empty_cache()
+
+    # D's frame-attention core alone (temporal.frame_attention_kernel) on a
+    # QKV scratch (2, 14, S, 3C) at the three levels, logits of standard
+    # deviation 1, against the plain frame_attention on the same q, k, v;
+    # level 0 timed beside the plain version and SDPA on (2 S, heads, 14,
+    # 64) copies of the same q, k, v. Bound: bytes (q, k, v read once, o
+    # written once).
+    for level, (s, c) in enumerate(((9216, 320), (2304, 640), (576, 1280))):
+        heads, f = c // 64, 14
+        qkv = rnd(2, f, s, 3 * c)
+        run_k = lambda: temporal.frame_attention_kernel(qkv, heads)
+        run_p = lambda: temporal.frame_attention(*qkv.chunk(3, dim=-1), heads)
+        err, scale, rel_rms, ok = compare(run_k(), run_p(), tol, rms_tol=rms_tol)
+        report("frame_attn", f"(B,F,S,C)=(2,{f},{s},{c}) heads={heads} core alone", err, scale, rel_rms, ok, tol,
+               rms_tol)
+        if level == 0:
+            ms, plain = cuda_ms(run_k, reps=7, inner=10), cuda_ms(run_p)
+            qs, ks, vs = (t.reshape(2, f, s, heads, 64).permute(0, 2, 3, 1, 4).reshape(2 * s, heads, f, 64).contiguous()
+                          for t in qkv.chunk(3, dim=-1))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), reps=7, inner=10)
+            bnd, by = bound_ms(2 * 4 * 2 * f * s * c, 4.0 * 2 * s * heads * f * f * 64, BF16_FLOPS)
+            rows.append(dict(name="frame_attn", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=lib))
+            cores.append(dict(name="temporal core", shape=(2 * s, heads, f, 64), ms=core_in_d, sdpa_ms=lib,
+                              bound_ms=bnd, bound_by=by, where="in D, profiler"))
+            del qs, ks, vs
+        else:
+            rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+        del qkv
     torch.cuda.empty_cache()
 
     # 5: flash attention forward and backward over head-folded (BN, S, 64)
@@ -574,8 +608,8 @@ def check_kernels(torch, ops):
         say(f"  {r['name']:9s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={lib}")
     for r in cores:
-        say(f"  {r['name']:13s} {str(r['shape']):22s} ms={r['ms']:.4f} sdpa_ms={r['sdpa_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} (operations)")
+        say(f"  {r['name']:13s} {str(r['shape']):22s} ms={r['ms']:.4f} ({r['where']}) sdpa_ms={r['sdpa_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     for r in mlp_levels:
         say(f"  mlp {r['label']}: rows={r['rows']} K={r['k']} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"two F.linear products {r['linears_ms']:.4f} bound_ms={r['bound_ms']:.4f} (operations)")
@@ -583,6 +617,68 @@ def check_kernels(torch, ops):
         say(f"  gemm {r['label']:26s} (M,N,K)={r['shape']} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"F.linear {r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     return rows, ok_all
+
+
+def gates_check(torch, ops, native):
+    """The dispatch gates of C and D on the card: spatial and temporal
+    transformer blocks at head_dim 16 (ModelBundle.tiny()'s 32 channels, 2
+    heads) and 128 (256 channels, 2 heads; a (5, 10, 10, 20)-heads UNet's
+    1280 channels, 10 heads), bf16, S = 45, 3 frames, CFG batch 2: each
+    runs without C or D, within the step tolerance (3e-2 rel RMS) of the
+    same block with every kernel switch of the block off; then a direct
+    call of each wrapper at head_dim 16 still raises."""
+    from posetraj_torch.configs import KernelConfig, use_kernels
+    from posetraj_torch.core.init import Init
+    from posetraj_torch.models import transformer as tt
+
+    qkvt, temporal = ops[2], ops[3]
+    dev, bf, f, s, tol = torch.device("cuda"), torch.bfloat16, 3, 45, 3e-2
+    plain = KernelConfig(qkvt_attn=False, temporal_attn=False, fused_ff=False)
+    ok_all = True
+    for dim, heads in ((32, 2), (256, 2), (1280, 10)):
+        for temporal_block in (False, True):
+            g = torch.Generator(device="cuda").manual_seed(dim + heads + temporal_block)
+            init = tt.init_temporal_basic_transformer_block if temporal_block else tt.init_basic_transformer_block
+            p = init(Init(g, dev, bf), dim, heads, 1024)
+            x = torch.randn(2 * f, s, dim, generator=g, device="cuda").to(bf)
+            if temporal_block:
+                ctx = torch.randn(2, 1, s, 1024, generator=g, device="cuda").to(bf)
+                run = lambda: tt.temporal_basic_transformer_block(p, x, f, heads, context=ctx)
+            else:
+                ctx = torch.randn(2 * f, 1, 1024, generator=g, device="cuda").to(bf)
+                run = lambda: tt.basic_transformer_block(p, x, heads, context=ctx)
+            native.reset_launches()
+            with torch.inference_mode():
+                with use_kernels(KernelConfig()):
+                    got = run().float()
+                torch.cuda.synchronize()
+                launched = native.LAUNCHES["qkvt"] + native.LAUNCHES["temporal"] + native.LAUNCHES["frame_attn"]
+                with use_kernels(plain):
+                    want = run().float()
+            rel = float((got - want).norm() / want.norm())
+            ok = bool(torch.isfinite(got).all()) and launched == 0 and rel <= tol
+            ok_all &= ok
+            say(f"  gates     {'temporal' if temporal_block else 'spatial'} block C={dim} heads={heads} "
+                f"(head_dim {dim // heads}): C/D launches {launched}, vs plain block rel_rms={rel:.3g} "
+                f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    c = 32
+    w, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    wq, wo, bo = torch.randn(3 * c, c, device=dev, dtype=bf), torch.randn(c, c, device=dev, dtype=bf), torch.zeros(
+        c, device=dev, dtype=bf)
+    for name, call in (("qkvt.attn_sublayer", lambda: qkvt.attn_sublayer(torch.randn(2, s, c, device=dev, dtype=bf),
+                                                                         w, b, wq, wo, bo, 2)),
+                       ("temporal.temporal_attn_sublayer",
+                        lambda: temporal.temporal_attn_sublayer(torch.randn(2, f, s, c, device=dev, dtype=bf), w, b,
+                                                                wq, wo, bo, 2))):
+        try:
+            call()
+            raised = False
+        except ValueError:
+            raised = True
+        ok_all &= raised
+        say(f"  gates     {name} called directly at head_dim 16: {'raises' if raised else 'did NOT raise'} "
+            f"{'ok' if raised else 'FAIL'}")
+    return ok_all
 
 
 # ---------------------------------------------------------------------------
@@ -991,9 +1087,9 @@ def run_pipeline(torch, native, bundle, params, steps, height, width):
 # (ControlNet + UNet, CFG batch B*F = 28), from the code: 23 transformers
 # (ControlNet down 2+2+2 and mid 1, UNet down 2+2+2, mid 1, up 3+3+3), each
 # with one spatial (C) and one temporal (D) self-attention sub-layer, each
-# of those with two GEMM launches, and three GEGLU feed-forwards (B: ff,
-# ff_in and the temporal ff).
-DEFAULT_PER_STEP = {"mlp": 69, "qkvt": 23, "temporal": 23, "gemm": 92}
+# of those with two GEMM launches (and D with one frame attention), and
+# three GEGLU feed-forwards (B: ff, ff_in and the temporal ff).
+DEFAULT_PER_STEP = {"mlp": 69, "qkvt": 23, "temporal": 23, "gemm": 92, "frame_attn": 23}
 # Launches of PyTorch's matrix products (cuBLAS) in one default step: 347
 # and 349 in two H100 runs of the same model code (proj_in/out, the
 # one-token cross-attentions, the temporal conv's taps; cuBLAS picks its
@@ -1020,8 +1116,8 @@ UNFUSED = dict(qkvt_attn=False, temporal_attn=False, fused_ff_ln=False, fused_ln
 #   qkvt, temporal (and so C's and D's GEMMs), flash_fwd, flash_bwd,
 #   flash_qkv: 0.
 # CLIP (257 tokens) and the VAE (head_dim 512, no LayerNorm) add none.
-UNFUSED_PER_STEP = {"flash_tq": 14, "layernorm": 105, "qkvt": 0, "temporal": 0, "gemm": 0, "flash_fwd": 0,
-                    "flash_bwd": 0, "flash_qkv": 0}
+UNFUSED_PER_STEP = {"flash_tq": 14, "layernorm": 105, "qkvt": 0, "temporal": 0, "gemm": 0, "frame_attn": 0,
+                    "flash_fwd": 0, "flash_bwd": 0, "flash_qkv": 0}
 
 
 def un_fused_check(torch, ops, native, bundle, params, steps, card):
@@ -1093,7 +1189,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"cannot import posetraj_torch next to this script ({e})")
     ops = (groupnorm, mlp, qkvt, temporal, flash, layernorm, gemm)
-    inference_kernels = ("groupnorm", "mlp", "qkvt", "temporal", "gemm")
+    inference_kernels = ("groupnorm", "mlp", "qkvt", "temporal", "gemm", "frame_attn")
     training_kernels = inference_kernels + ("flash_fwd", "flash_bwd")
     off_default = ("flash_fwd", "flash_bwd", "flash_qkv", "flash_tq", "layernorm")
     t_start = time.perf_counter()
@@ -1121,6 +1217,14 @@ def main() -> None:
         say(f"  {name} library SASS: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
         if not hgmma or not utmaldg:
             fail(f"the {name} library has no HGMMA or no UTMALDG instruction: it is not on wgmma and TMA")
+        if name == "temporal":
+            # D's frame attention runs on mma.sync (HMMA) fed by TMA: count
+            # both in its own function of the library's SASS.
+            frame = "".join(part for part in sass.split("Function : ")[1:] if "frame_attn" in part.split("\n", 1)[0])
+            hmma, utmaldg = frame.count("HMMA"), frame.count("UTMALDG")
+            say(f"  temporal library SASS, frame_attn: {hmma} HMMA, {utmaldg} UTMALDG instructions")
+            if not hmma or not utmaldg:
+                fail("D's frame attention has no HMMA or no UTMALDG instruction: it is not on mma.sync and TMA")
     say(f"phase 1: {torch.cuda.get_device_name(0)} | {card} | kernels built in {build_s:.1f} s")
 
     # Phase 2
@@ -1128,6 +1232,8 @@ def main() -> None:
     rows, kernels_ok = check_kernels(torch, ops)
     if not kernels_ok:
         fail("a kernel disagrees with its plain version")
+    if not gates_check(torch, ops, _native):
+        fail("a block whose gate declines C or D raised, launched them, or disagrees with the plain block")
 
     # Phase 3
     bundle = ModelBundle()
@@ -1141,14 +1247,19 @@ def main() -> None:
     # could not see a fault in kernels C and D.
     step_tol, step_rms_tol = 5e-2, 3e-2
     cublas = st["profile"][1].get("matmul (cuBLAS)", (0.0, 0))[1]
-    step_ok = (st["finite"] and st["err"] <= step_tol * max(st["scale"], 1.0) and st["rel_rms"] <= step_rms_tol
+    # Kernel A is one device launch a call: its profiled launches equal its
+    # wrapper's count.
+    gn_device = st["profile"][1].get("A groupnorm (port)", (0.0, 0))[1]
+    step_ok = (gn_device == st["per_step"]["groupnorm"] and st["finite"]
+               and st["err"] <= step_tol * max(st["scale"], 1.0) and st["rel_rms"] <= step_rms_tol
                and st["attn_effect"] > step_rms_tol and not any(st["per_step"][k] for k in off_default)
                and all(st["per_step"][k] == n for k, n in DEFAULT_PER_STEP.items())
                and cublas < CUBLAS_PER_STEP + CUBLAS_MARGIN and st["plain_launches"] == 0)
     say(f"phase 3: one denoise step 14x576x1024 CFG: max_abs_err={st['err']:.4g} (|ref|max {st['scale']:.3g}, "
         f"tol {step_tol:g}x) rel_rms={st['rel_rms']:.3g} (tol {step_rms_tol:g}) uniform-attention "
         f"rel_rms={st['attn_effect']:.3g} (must exceed {step_rms_tol:g}) launches/step={st['per_step']} "
-        f"(predicted {DEFAULT_PER_STEP}; cuBLAS {cublas}, below {CUBLAS_PER_STEP + CUBLAS_MARGIN}) "
+        f"(predicted {DEFAULT_PER_STEP}; cuBLAS {cublas}, below {CUBLAS_PER_STEP + CUBLAS_MARGIN}; A {gn_device} "
+        f"device launches for {st['per_step']['groupnorm']} calls) "
         f"step {st['step_s']:.3f} s (plain {st['plain_s']:.3f} s, {st['plain_launches']} launches) "
         f"{'ok' if step_ok else 'FAIL'}")
     print_profile(f"profile of one kernel step on {card}", st["profile"])

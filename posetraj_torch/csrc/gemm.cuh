@@ -211,12 +211,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       "r"(src), "r"(c0), "r"(c1), "r"(0)
       : "memory");
 }
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-// The stores this thread issued have read their shared memory / have completed.
-__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-// Generic-proxy writes to shared memory, visible to the TMA store after it.
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 // Named barrier of one warpgroup.
 __device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
 

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the flash-attention kernels and the GEMM
-// of kernels B, C and D (gemm.cuh) (sm_90a):
-// host-built TMA tensor maps, TMA loads that complete on an mbarrier, the
-// mbarrier ring's init / arrive / expect-tx / wait, wgmma shared-memory
+// Hopper building blocks shared by the flash-attention kernels, the GEMM
+// of kernels B, C and D (gemm.cuh), kernel A and D's frame attention
+// (sm_90a): host-built TMA tensor maps, TMA loads that complete on an
+// mbarrier, one-dimensional bulk copies, the mbarrier ring's init / arrive /
+// expect-tx / wait, wgmma shared-memory
 // descriptors for 128-byte-swizzled tiles, fence / commit / wait, the wgmma
 // products the kernels use, the conversion of a float32 wgmma accumulator
 // into a bf16 register A operand, and setmaxnreg.
@@ -154,6 +155,32 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+
+// One-dimensional bulk copies (no tensor map): `bytes` (a multiple of 16,
+// 16-byte aligned) from global memory into shared memory, completing on
+// `bar`, which first expects them; and from shared memory to global memory
+// in this thread's bulk group.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  mbar_expect_tx(bar, bytes);
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_addr(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// The stores this thread issued have read their shared memory / have completed.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// Generic-proxy accesses to shared memory, ordered before a bulk or TMA copy
+// of the same bytes after it.
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // ---------------------------------------------------------------------------
 // Device: warpgroup MMA

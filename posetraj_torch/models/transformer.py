@@ -4,11 +4,15 @@
 Shapes: spatial tokens (B*F, H*W, C); temporal blocks work on (B, F, S, C)
 without the (B*S, F, C) transpose. The sub-layers follow the JAX package's
 dispatch under the active KernelConfig (configs.kernel_config):
-  * spatial self-attention: kernel C (ops/qkvt.attn_sublayer) under
-    qkvt_attn; else LayerNorm + attention_module (the packed projection,
-    ops/attention.self_attention_qkv: kernel 7, or 6 at head_dim 128)
+  * spatial self-attention: kernel C (ops/qkvt.attn_sublayer) where its
+    gate (qkvt.attn_sublayer_applicable: qkvt_attn, head_dim 64) and the
+    block's `backend` allow it; else LayerNorm + attention_module (the packed
+    projection, ops/attention.self_attention_qkv: kernel 7, or 6 at head_dim
+    128)
   * temporal self-attention: kernel D (ops/temporal.temporal_attn_sublayer)
-    under temporal_attn; else LayerNorm + _frame_axis_attention
+    where its gate (temporal.temporal_attn_sublayer_applicable:
+    temporal_attn, head_dim 64, F <= 16) allows it; else LayerNorm +
+    _frame_axis_attention
   * every GEGLU feed-forward: kernel B (ops/mlp.geglu_mlp) with the
     LayerNorm, residual and addend folded in under fused_ff_ln; else a
     standalone LayerNorm and kernel B without it; plain GEGLU when fused_ff
@@ -127,12 +131,16 @@ def init_basic_transformer_block(ini: Init, dim: int, num_heads: int, cross_atte
 
 
 def basic_transformer_block(params: dict, x: torch.Tensor, num_heads: int, context: Optional[torch.Tensor] = None,
-                            compute_dtype=None) -> torch.Tensor:
+                            backend: str = "auto", compute_dtype=None) -> torch.Tensor:
     """(B*F, S, C) -> same: self-attention sub-layer, cross-attention, FF
-    sub-layer."""
+    sub-layer. backend "xla" keeps the self-attention off kernel C (the JAX
+    package's name for its plain path, which the temp hint encoder asks
+    for); "auto" lets the gate decide."""
+    if backend not in ("auto", "xla"):
+        raise ValueError(f"basic_transformer_block: backend must be 'auto' or 'xla', got {backend!r}")
     dt = compute_dtype or x.dtype
     a1 = params["attn1"]
-    if kernel_config().qkvt_attn:
+    if backend == "auto" and qkvt.attn_sublayer_applicable(x, num_heads, a1["wqkv"], a1["to_out"]["weight"]):
         x = qkvt.attn_sublayer(
             x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
             a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
@@ -204,7 +212,7 @@ def temporal_basic_transformer_block(params: dict, x: torch.Tensor, num_frames: 
     x = feed_forward(params["ff_in"], x, params["norm_in"],
                      add.reshape(b, num_frames, 1, c) if add is not None else None, compute_dtype)
     a1 = params["attn1"]
-    if kernel_config().temporal_attn:
+    if temporal.temporal_attn_sublayer_applicable(x, num_heads, a1["wqkv"], a1["to_out"]["weight"]):
         x = temporal.temporal_attn_sublayer(
             x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
             a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,

@@ -11,7 +11,9 @@ launched its kernel on the card, none for a call that ran the plain version.
 The flash library serves four counters: kernel 5's forward and backward
 (`flash_fwd`, `flash_bwd`), kernel 6 (`flash_qkv`) and kernel 7
 (`flash_tq`). The GEMM of gemm.cuh counts under `gemm` where kernels C and D
-launch it (two launches a call) and where ops/gemm.py launches it alone.
+launch it (two launches a call) and where ops/gemm.py launches it alone; D's
+frame attention counts under `frame_attn` in each D call and where
+ops/temporal.frame_attention_kernel launches it alone.
 
 A launcher writes into fresh outputs that autograd knows nothing of, so
 `check_cuda` refuses a tensor that requires grad while grad mode is on: a
@@ -33,8 +35,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("groupnorm", "mlp", "qkvt", "temporal", "flash", "layernorm")
-COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "gemm", "flash_fwd", "flash_bwd", "flash_qkv", "flash_tq",
-            "layernorm")
+COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "gemm", "frame_attn", "flash_fwd", "flash_bwd", "flash_qkv",
+            "flash_tq", "layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -42,6 +44,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, object] = {}  # (library, entry point) -> the ctypes function, argtypes set once
 
 
 def reset_launches() -> None:
@@ -136,13 +139,15 @@ def call(name: str, fn: str, argtypes, *args, count: str = "", also=()) -> None:
     `also` names as (counter, launches) pairs."""
     import torch
 
-    lib = library(name)
-    f = getattr(lib, fn)
-    f.argtypes = list(argtypes) + [P]
-    f.restype = ctypes.c_int
+    f = _FUNCS.get((name, fn))
+    if f is None:
+        f = getattr(library(name), fn)
+        f.argtypes = list(argtypes) + [P]
+        f.restype = ctypes.c_int
+        _FUNCS[(name, fn)] = f
     err = f(*args, P(torch.cuda.current_stream().cuda_stream))
     if err != 0:
-        raise RuntimeError(f"{name}.{fn}: CUDA error {err}: {lib.pt_error_string(err).decode()}")
+        raise RuntimeError(f"{name}.{fn}: CUDA error {err}: {library(name).pt_error_string(err).decode()}")
     LAUNCHES[count or name] += 1
     for key, n in also:
         LAUNCHES[key] += n

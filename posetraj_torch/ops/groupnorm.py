@@ -5,7 +5,10 @@ kernel is posetraj_torch/csrc/groupnorm.cu; `group_norm_plain` is the same
 function in plain PyTorch. `group_norm` runs the plain version for a tensor
 on the CPU and launches the kernel for one on the card, through `GroupNorm`,
 its custom_vjp (_gn_fwd/_gn_bwd): the backward recomputes the plain version
-for the gradients of x, weight, bias and the addend.
+for the gradients of x, weight, bias and the addend. `schedule` sets the
+kernel's one cooperative launch: its grid and its teams, a team per sample
+in flight, sized so that each sample in flight stays in its team's shared
+memory between the kernel's two passes over it.
 """
 
 from __future__ import annotations
@@ -72,11 +75,54 @@ def group_norm(x, weight, bias, num_groups: int, eps: float, act: bool, add=None
     return GroupNorm.apply(x, weight, bias, add, num_groups, eps, act)
 
 
-def rows_per_block(n: int, s: int) -> int:
-    """Stats-pass row range per block: enough blocks (about 1024) to fill
-    the card's 132 SMs several times over, at least 32 rows each."""
-    blocks_per_sample = max(1, -(-1024 // n))
-    return max(32, -(-s // blocks_per_sample))
+# Kernel A's launch: 512 threads a CTA, at most two CTAs an SM, all
+# co-resident; each CTA holds up to SLOTS x SLOT_BYTES of its rows in
+# shared memory (csrc/groupnorm.cu), and one 16-byte vector of a row a
+# thread: rows of at most 8 KB.
+THREADS = 512
+CTAS_PER_SM = 2
+SLOTS = 4
+SLOT_BYTES = 24 * 1024
+SMEM_PER_SM = 228 * 1024
+# Teams the counter buffer has room for: one per CTA of the largest grid.
+MAX_TEAMS = 1024
+
+_WORKSPACE = {}
+_SMS = {}
+
+
+def schedule(n: int, s: int, c: int, itemsize: int, groups: int, sms: int):
+    """(grid, teams) of kernel A for x (n, s, c): a grid of as many CTAs as
+    fit the SMs (two an SM while their shared memory allows), no more than
+    give each CTA 8 KB; as many teams as samples that the grid can hold in
+    shared memory at once (a sample needs ceil(s / rows a CTA holds) CTAs),
+    at most one a sample, then evened out so that every team takes
+    ceil(n / teams) samples or one fewer. A sample larger than the whole
+    grid's shared memory runs one team of the whole grid, streaming."""
+    row = c * itemsize
+    if row > THREADS * 16:
+        raise ValueError(f"group_norm kernel: a row of {row} bytes is wider than {THREADS} 16-byte vectors")
+    smem = SLOTS * SLOT_BYTES + 4 * (THREADS * 16 // itemsize + 2 * groups) + 1024
+    per_sm = max(1, min(CTAS_PER_SM, SMEM_PER_SM // smem))
+    grid = max(1, min(per_sm * sms, MAX_TEAMS, -(-n * s * row // 8192)))
+    need = -(-s // (SLOTS * (SLOT_BYTES // row)))
+    most = max(1, min(n, grid // need))
+    rounds = -(-n // most)
+    return grid, -(-n // rounds)
+
+
+def _workspace(device: torch.device, groups: int):
+    """Kernel A's team state on one device: two barrier counters a team
+    (int32) and three rounds of [sum, sum of squares] a group (float64).
+    Zeroed when made, left zero by every launch (csrc/groupnorm.cu), so a
+    call needs no memset; calls on one device share it and must not overlap
+    on two streams."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[1].numel() < MAX_TEAMS * 6 * groups:
+        ws = _WORKSPACE[key] = (torch.zeros(2 * MAX_TEAMS, dtype=torch.int32, device=device),
+                                torch.zeros(MAX_TEAMS * 6 * groups, dtype=torch.float64, device=device))
+    return ws
 
 
 def group_norm_kernel(x, weight, bias, num_groups: int, eps: float, act: bool, add=None) -> torch.Tensor:
@@ -87,6 +133,8 @@ def group_norm_kernel(x, weight, bias, num_groups: int, eps: float, act: bool, a
     if c % vec != 0 or c % num_groups != 0 or x.ndim < 2:
         raise ValueError(f"group_norm kernel: C={c} must divide by {vec} and by {num_groups} groups")
     s = math.prod(x.shape[1:-1])
+    if s >= 2**31:
+        raise ValueError(f"group_norm kernel: {s} rows a sample (at most 2^31 - 1)")
     frames = 1
     if add is not None:
         add = _addend_shape(x, add).to(x.dtype).contiguous()
@@ -96,17 +144,18 @@ def group_norm_kernel(x, weight, bias, num_groups: int, eps: float, act: bool, a
     weight = weight.float().contiguous()
     bias = bias.float().contiguous()
     _native.check_cuda("group_norm", x=x, weight=weight, bias=bias, add=add)
-    rpb = rows_per_block(n, s)
-    nb = -(-s // rpb)
-    partial = torch.empty((n, nb, 2 * num_groups), device=x.device, dtype=torch.float32)
-    scale_shift = torch.empty((n, 2, c), device=x.device, dtype=torch.float32)
+    sms = _SMS.get(x.device.index)
+    if sms is None:
+        sms = _SMS[x.device.index] = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid, teams = schedule(n, s, c, x.element_size(), num_groups, sms)
+    counters, sums = _workspace(x.device, num_groups)
     y = torch.empty_like(x)
     P, I, L, Fl = _native.P, _native.I, _native.L, _native.Fl
     _native.call(
         NAME, "pt_group_norm",
-        [P, P, P, P, P, P, P, L, L, I, I, I, L, Fl, I, I],
-        _native.ptr(x), _native.ptr(weight), _native.ptr(bias), _native.ptr(add),
-        _native.ptr(partial), _native.ptr(scale_shift), _native.ptr(y),
-        n, s, c, num_groups, frames, rpb, float(eps), int(act), int(x.dtype == torch.bfloat16),
+        [P, P, P, P, P, P, P, L, L, I, I, I, Fl, I, I, I, I],
+        _native.ptr(x), _native.ptr(weight), _native.ptr(bias), _native.ptr(add), _native.ptr(sums),
+        _native.ptr(counters), _native.ptr(y),
+        n, s, c, num_groups, frames, float(eps), int(act), int(x.dtype == torch.bfloat16), grid, teams,
     )
     return y

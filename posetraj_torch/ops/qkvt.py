@@ -7,7 +7,8 @@ csrc/gemm.cuh's, counted under `gemm` as well); `attn_sublayer_plain` is the sam
 PyTorch, attention included. `AttnSublayer` is its custom_vjp
 (_asl_fwd/_asl_bwd): the forward runs the kernel on the card and saves its
 inputs, the backward recomputes `attn_sublayer_ref`, whose attention()
-reaches kernel 5 on the card.
+reaches kernel 5 on the card. `attn_sublayer_applicable` is the dispatch
+gate of models/transformer.basic_transformer_block.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from posetraj_torch.configs import kernel_config
 from posetraj_torch.ops import _native, gemm
 from posetraj_torch.ops.attention import attention, dot_product_attention
 from posetraj_torch.ops.recompute import recompute_vjp
@@ -25,6 +27,18 @@ HEAD_DIM = 64
 # The plain version materialises (batch, heads, S, S) float32 logits; it
 # walks the batch in chunks that keep them near this many bytes.
 _PLAIN_LOGIT_BYTES = 2 << 30
+
+
+def attn_sublayer_applicable(x: torch.Tensor, num_heads: int, wqkv=None, wo=None) -> bool:
+    """The JAX gate (pallas_qkvt.attn_sublayer_applicable): KernelConfig.qkvt_attn,
+    within kernel C's own limits (x (B, S, C), head_dim 64, C <= gemm.MAX_K,
+    wqkv (3C, C) and wo (C, C) where given) instead of the TPU's rules on S
+    and its tiles."""
+    if not kernel_config().qkvt_attn or x.ndim != 3 or num_heads <= 0:
+        return False
+    c = x.shape[-1]
+    return (c == num_heads * HEAD_DIM and c <= gemm.MAX_K and (wqkv is None or tuple(wqkv.shape) == (3 * c, c))
+            and (wo is None or tuple(wo.shape) == (c, c)))
 
 
 def _sublayer(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, eps: float, attend) -> torch.Tensor:

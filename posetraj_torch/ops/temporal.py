@@ -3,10 +3,15 @@ x + to_out(frame_attention(LN(x))) over x (B, F, S, C).
 
 Port of posetraj_tpu/ops/pallas_temporal.py:temporal_attn_sublayer. The
 CUDA kernel is posetraj_torch/csrc/temporal.cu (the LayerNorm pre-pass, the
-QKV GEMM, per-pixel frame attention, the out-proj GEMM with the residual;
-both GEMMs are csrc/gemm.cuh's, counted under `gemm` as well); `temporal_attn_sublayer_plain`
-is the same function in plain PyTorch. `TemporalAttnSublayer` is its
+QKV GEMM, per-pixel frame attention on mma.sync fed by TMA, the out-proj
+GEMM with the residual; both GEMMs are csrc/gemm.cuh's, counted under `gemm`
+as well, the frame attention under `frame_attn`); `temporal_attn_sublayer_plain`
+is the same function in plain PyTorch. `frame_attention_kernel` launches
+the frame attention alone on a QKV scratch, beside its plain version
+`frame_attention`. `TemporalAttnSublayer` is its
 custom_vjp (_tas_fwd/_tas_bwd): kernel forward, plain recompute backward.
+`temporal_attn_sublayer_applicable` is the dispatch gate of
+models/transformer.temporal_basic_transformer_block.
 """
 
 from __future__ import annotations
@@ -14,12 +19,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from posetraj_torch.configs import kernel_config
 from posetraj_torch.ops import _native, gemm
 from posetraj_torch.ops.recompute import recompute_vjp
 
 NAME = "temporal"
+CORE = "frame_attn"
 HEAD_DIM = 64
-MAX_FRAMES = 32
+# The frame kernel holds one pixel's frames in one 16-row mma tile; the JAX
+# gate declines F > 16 too (pallas_temporal.temporal_attn_sublayer_applicable).
+MAX_FRAMES = 16
+
+
+def temporal_attn_sublayer_applicable(x: torch.Tensor, num_heads: int, wqkv=None, wo=None) -> bool:
+    """The JAX gate (pallas_temporal.temporal_attn_sublayer_applicable):
+    KernelConfig.temporal_attn, within kernel D's own limits (x (B, F, S, C),
+    F <= 16, head_dim 64, C <= gemm.MAX_K, wqkv (3C, C) and wo (C, C) where
+    given) instead of the TPU's rules on S and its tiles."""
+    if not kernel_config().temporal_attn or x.ndim != 4 or num_heads <= 0:
+        return False
+    f, c = x.shape[1], x.shape[-1]
+    return (1 <= f <= MAX_FRAMES and c == num_heads * HEAD_DIM and c <= gemm.MAX_K
+            and (wqkv is None or tuple(wqkv.shape) == (3 * c, c)) and (wo is None or tuple(wo.shape) == (c, c)))
 
 
 def frame_attention(q, k, v, num_heads: int) -> torch.Tensor:
@@ -89,6 +110,24 @@ def temporal_attn_sublayer_kernel(x, ln_w, ln_b, wqkv, wo, bo, num_heads: int, e
         [P, P, P, P, P, P, P, P, P, L, I, L, I, I, Fl, Fl],
         _native.ptr(x), _native.ptr(ln_w), _native.ptr(ln_b), _native.ptr(wqkv), _native.ptr(wo),
         _native.ptr(bo), _native.ptr(qkv), _native.ptr(o), _native.ptr(out),
-        b, f, s, c, num_heads, float(eps), float(HEAD_DIM**-0.5), also=((gemm.COUNT, 2),),
+        b, f, s, c, num_heads, float(eps), float(HEAD_DIM**-0.5), also=((gemm.COUNT, 2), (CORE, 1)),
     )
     return out
+
+
+def frame_attention_kernel(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Frame attention of kernel D alone: qkv (B, F, S, 3C) laid out
+    [q | k | v] as D's QKV GEMM writes it -> o (B, F, S, C), the function
+    frame_attention(*qkv.chunk(3, -1), num_heads) computes. CUDA only."""
+    b, f, s, c3 = qkv.shape
+    c = c3 // 3
+    if c3 != 3 * c or c != num_heads * HEAD_DIM or not 1 <= f <= MAX_FRAMES:
+        raise ValueError(f"frame attention kernel: head_dim {HEAD_DIM} and 1 <= F <= {MAX_FRAMES} (F={f}, "
+                         f"3C={c3}, heads={num_heads})")
+    _native.check_dtype("frame_attention", torch.bfloat16, qkv=qkv)
+    _native.check_cuda("frame_attention", qkv=qkv)
+    o = torch.empty((b, f, s, c), device=qkv.device, dtype=qkv.dtype)
+    P, I, L, Fl = _native.P, _native.I, _native.L, _native.Fl
+    _native.call(NAME, "pt_frame_attention", [P, P, L, I, L, I, I, Fl], _native.ptr(qkv), _native.ptr(o), b, f, s, c,
+                 num_heads, float(HEAD_DIM**-0.5), count=CORE)
+    return o

@@ -22,7 +22,9 @@ without lse (test_cuda_flash_forward_layouts). Kernel 8: within 1e-2 of the
 reference's max and 2e-3 rel RMS in bf16 (one rounding apart), 1e-5 and
 1e-6 in float32 (summation order). The Hopper GEMM of B, C and D
 (csrc/gemm.cuh), held on B's variants and alone on each epilogue at ragged
-M, N and K, takes B's tolerances.
+M, N and K, takes B's tolerances. D's frame attention alone takes D's
+tolerances; blocks whose gates decline C and D are held to the step's
+(3e-2 relative RMS of the all-plain block: bf16 roundings along a block).
 """
 
 import math
@@ -394,3 +396,153 @@ def test_cuda_sublayer_gemm_epilogues(kind, shape):
     torch.cuda.synchronize()
     assert _native.LAUNCHES[kind] == 1 and _native.LAUNCHES["gemm"] == 2
     _check(got, plain(*a), 3e-2, a[0], 1e-2)
+
+
+# Kernel A's schedule boundaries (ops/groupnorm.schedule): N = 1, 2 and 28;
+# rows per sample that do not divide among a team's CTAs; samples above the
+# L2 budget (one team, second read from HBM); float32; per-sample and
+# per-frame addends; a mean of 0.5 beside the unit spread, so that E[x^2] -
+# mean^2 in float32 partials would show.
+GN_CASES = [
+    ((1, 40, 56, 320), (1, 320), torch.bfloat16),
+    ((2, 45, 77, 64), (2, 64), torch.bfloat16),
+    ((28, 9, 16, 1280), (28, 1280), torch.bfloat16),
+    ((28, 18, 32, 640), None, torch.bfloat16),
+    ((3, 37, 41, 128), None, torch.float32),
+    ((1, 200, 512, 128), None, torch.float32),
+    ((2, 14, 36, 64, 320), (2, 14, 320), torch.bfloat16),
+    ((2, 3, 13, 11, 64), (2, 3, 64), torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,add_shape,dtype", GN_CASES)
+def test_cuda_group_norm_schedules(shape, add_shape, dtype):
+    """Kernel A against its plain version at each schedule boundary, one
+    wrapper launch a call; the teams' counters and sums left zero."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=g, device="cuda") + 0.5).to(dtype)
+    w = torch.rand(c, generator=g, device="cuda") + 0.5
+    b = torch.randn(c, generator=g, device="cuda") * 0.1
+    add = torch.randn(*add_shape, generator=g, device="cuda").to(dtype) if add_shape else None
+    _native.reset_launches()
+    got = groupnorm.group_norm_kernel(x, w, b, 32, 1e-6, True, add)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["groupnorm"] == 1
+    assert not any(t.any() for t in groupnorm._workspace(x.device, 32))
+    _check(got, groupnorm.group_norm_plain(x, w, b, 32, 1e-6, True, add), 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_alternating_team_sizes():
+    """Calls whose teams differ in size, back to back on one stream, share
+    the barrier counters: each must find them reset by the one before."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = [torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+          for s in ((28, 9, 16, 1280), (3, 37, 41, 128), (7, 24, 24, 320))]
+    w, b = torch.ones(1280, device="cuda"), torch.zeros(1280, device="cuda")
+    outs = [groupnorm.group_norm_kernel(x, w[: x.shape[-1]], b[: x.shape[-1]], 32, 1e-5, False)
+            for _ in range(3) for x in xs]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        x = xs[i % 3]
+        _check(got, groupnorm.group_norm_plain(x, w[: x.shape[-1]], b[: x.shape[-1]], 32, 1e-5, False), 2e-2)
+
+
+# D's frame attention alone: F in {1, 8, 14, 16} (16: one full mma tile, no
+# padded rows), S not a multiple of the 8-pixel stage, heads 5, 10 and 20.
+FRAME_CASES = [(2, 1, 45, 5), (1, 8, 13, 10), (2, 14, 100, 5), (1, 16, 37, 20), (2, 14, 9, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,s,heads", FRAME_CASES)
+def test_cuda_frame_attention_matches_plain(b, f, s, heads):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(f * s + heads)
+    c = heads * 64
+    qkv = torch.randn(b, f, s, 3 * c, generator=g, device="cuda")
+    qkv[..., : 2 * c] *= 2.0**0.5  # logits q.k/8 of standard deviation 2
+    qkv = qkv.to(torch.bfloat16)
+    _native.reset_launches()
+    got = temporal.frame_attention_kernel(qkv, heads)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["frame_attn"] == 1 and got.shape == (b, f, s, c)
+    _check(got, temporal.frame_attention(*qkv.chunk(3, dim=-1), heads), 3e-2, rms_tol=1e-2)
+
+
+def _block(dim, heads, temporal_block, seed):
+    from posetraj_torch.core.init import Init
+    from posetraj_torch.models import transformer as tt
+
+    ini = Init(torch.Generator(device="cuda").manual_seed(seed), torch.device("cuda"), torch.bfloat16)
+    init = tt.init_temporal_basic_transformer_block if temporal_block else tt.init_basic_transformer_block
+    p = init(ini, dim, heads, 16)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    f, s = 3, 45
+    x = torch.randn(2 * f, s, dim, generator=g, device="cuda").to(torch.bfloat16)
+    if temporal_block:
+        ctx = torch.randn(2, 1, s, 16, generator=g, device="cuda").to(torch.bfloat16)
+        return lambda: tt.temporal_basic_transformer_block(p, x, f, heads, context=ctx)
+    ctx = torch.randn(2 * f, 1, 16, generator=g, device="cuda").to(torch.bfloat16)
+    return lambda: tt.basic_transformer_block(p, x, heads, context=ctx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal_block", [False, True])
+@pytest.mark.parametrize("dim,heads", [(32, 2), (256, 2), (1280, 10)])
+def test_cuda_blocks_where_the_gate_declines(dim, heads, temporal_block):
+    """head_dim 16 (ModelBundle.tiny()) and 128 (a (5, 10, 10, 20)-heads
+    UNet): the blocks compute on the card, kernels C and D not launched,
+    within the step tolerance (3e-2 rel RMS) of the all-plain block."""
+    _need_cuda()
+    from posetraj_torch.configs import KernelConfig, use_kernels
+
+    run = _block(dim, heads, temporal_block, dim + heads)
+    _native.reset_launches()
+    with torch.inference_mode(), use_kernels(KernelConfig()):
+        got = run().float()
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["qkvt"] == 0 and _native.LAUNCHES["temporal"] == 0
+    with torch.inference_mode(), use_kernels(KernelConfig(qkvt_attn=False, temporal_attn=False, fused_ff=False)):
+        want = run().float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).norm() / want.norm()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_still_refuse_head_dim_16():
+    _need_cuda()
+    dev, bf = "cuda", torch.bfloat16
+    c = 32
+    w, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    wq, wo = torch.randn(3 * c, c, device=dev, dtype=bf), torch.randn(c, c, device=dev, dtype=bf)
+    bo = torch.zeros(c, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="head_dim"):
+        qkvt.attn_sublayer(torch.randn(2, 45, c, device=dev, dtype=bf), w, b, wq, wo, bo, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        temporal.temporal_attn_sublayer(torch.randn(2, 3, 45, c, device=dev, dtype=bf), w, b, wq, wo, bo, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        temporal.frame_attention_kernel(torch.randn(2, 3, 45, 3 * c, device=dev, dtype=bf), 2)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_generate():
+    """ModelBundle.tiny() (head_dim 16) through the pipeline on the card:
+    kernel A runs, the gates keep C and D off, the video is finite and in
+    range."""
+    _need_cuda()
+    import numpy as np
+
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline, init_params
+
+    bundle = ModelBundle.tiny()
+    pipe = SVDControlNetPipeline(init_params(bundle, seed=3), bundle)
+    image = np.random.RandomState(0).rand(1, 64, 64, 3).astype(np.float32)
+    control = np.random.RandomState(1).rand(1, 2, 64, 64, 3).astype(np.float32)
+    _native.reset_launches()
+    out = pipe(image, control, height=64, width=64, num_frames=2, num_inference_steps=2, seed=7)
+    assert out.shape == (1, 2, 64, 64, 3) and np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
+    assert _native.LAUNCHES["groupnorm"] > 0 and _native.LAUNCHES["qkvt"] == 0 and _native.LAUNCHES["temporal"] == 0

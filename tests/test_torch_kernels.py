@@ -81,8 +81,12 @@ def test_group_norm_plain_matches_pallas_interpret():
 
 def test_group_norm_rows_per_block_covers_flagship():
     # VAE decode chunk at 576x1024: (14, 589824 rows, 128) > 2^28 elements.
-    rpb = groupnorm.rows_per_block(14, 576 * 1024)
-    assert rpb >= 32 and -(-576 * 1024 // rpb) * 14 >= 1024
+    # A 151 MB sample cannot stay in shared memory: one team of the whole
+    # grid (two CTAs on each of the H100's 132 SMs), each CTA a row range of
+    # at least 32 rows of every sample.
+    grid, teams = groupnorm.schedule(14, 576 * 1024, 128, 2, 32, 132)
+    assert (grid, teams) == (264, 1)
+    assert 576 * 1024 // grid >= 32
 
 
 # --------------------------------------------------------------------------

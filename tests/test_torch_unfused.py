@@ -176,9 +176,19 @@ def test_unfused_step_matches_jax(step_case, monkeypatch):
     assert calls and all(ln is None for ln in calls)  # kernel B without its LayerNorm
 
 
+def _gates_take_head_dim_16(monkeypatch):
+    """Kernels C and D take head_dim 64 only, and their gates decline the
+    tiny config's 16: let the gates take 16, so that only the KernelConfig
+    switches decide."""
+    monkeypatch.setattr(qkvt, "HEAD_DIM", 16)
+    monkeypatch.setattr(temporal, "HEAD_DIM", 16)
+
+
 def test_default_step_calls_kernels_c_and_d(step_case, monkeypatch):
     """The other side of the check above: under the default config the same
-    step does reach C and D, so refusing them would be seen."""
+    step does reach C and D where their gates take the head size, so
+    refusing them would be seen."""
+    _gates_take_head_dim_16(monkeypatch)
     seen = []
     for mod, name in ((qkvt, "attn_sublayer"), (temporal, "temporal_attn_sublayer")):
         real = getattr(mod, name)
@@ -186,6 +196,19 @@ def test_default_step_calls_kernels_c_and_d(step_case, monkeypatch):
     with use_kernels(KernelConfig()):
         port_step(step_case)
     assert {"attn_sublayer", "temporal_attn_sublayer"} <= set(seen)
+
+
+def test_unfused_switches_keep_c_and_d_off_where_the_gates_take_the_shape(step_case, monkeypatch):
+    """With the gates taking the tiny head size, the un-fused switches alone
+    keep every version of C and D out of the step."""
+    _gates_take_head_dim_16(monkeypatch)
+    for mod, names in ((qkvt, ("attn_sublayer", "attn_sublayer_plain", "attn_sublayer_kernel")),
+                       (temporal, ("temporal_attn_sublayer", "temporal_attn_sublayer_plain",
+                                   "temporal_attn_sublayer_kernel"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, _refuse)
+    with use_kernels(UNFUSED):
+        port_step(step_case)
 
 
 @pytest.mark.parametrize("add", [None, "per_sample", "per_frame"])
