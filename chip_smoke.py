@@ -4,9 +4,9 @@ in PERF.md): the quickest proof that the port builds and runs on the card,
 for inference and for training.
 
     python3 chip_smoke.py            # every phase, as the checks run it
-    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4 and 6
+    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6 and 8
 
-Phases, one line of output each (more for phases 2, 5 and 6):
+Phases, one line of output each (more for phases 2, 5, 6 and 8):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
      libraries from posetraj_torch/csrc, one nvcc per source, in parallel;
      the count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
@@ -60,8 +60,19 @@ Phases, one line of output each (more for phases 2, 5 and 6):
      (UNFUSED_PER_STEP) and its profile; (b) SVDControlNetPipeline with
      ModelBundle(kernels=UNFUSED), two requests: s/request, s/denoise-step,
      peak memory, launches per kernel against the prediction;
-  7. a `kernels` summary, the JSON line of kernel numbers, and the last line
-     {"ok": true, "device": {...}}.
+  8. the hint encoder's variants at 14x576x1024 on phase 3's parameters,
+     the hint encoder swapped: (a) kernel A at the temp variant's
+     per-video GroupNorm shape (2, 129024, 320) against its plain version,
+     with F.group_norm's time; (b) each variant's hint embedding (bbox,
+     cam, rot, entity, temp) on the CFG batch, kernels against plain, its
+     launches (temp: A once, B twice; the others none), and another value
+     of its condition moving it; temp again under UNFUSED (kernel 8 on its
+     blocks' LayerNorms, 258048 rows); (c) bbox, cam, rot and temp through
+     SVDControlNetPipeline, one request each (cam a second one with
+     another camera, whose latents must differ), launches against phase
+     4's per request; entity through controlnet_forward with two maps;
+  7. (printed last) a `kernels` summary, the JSON line of kernel numbers,
+     and the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
 seed; the zero-initialised ControlNet heads get small random values so the
 ControlNet branch reaches the output, and Wq, Wk are scaled so that the
@@ -1171,9 +1182,242 @@ def un_fused_check(torch, ops, native, bundle, params, steps, card):
     return launches
 
 
+# Phase 8: the hint encoder's variants at full width.
+VARIANTS = ("bbox", "cam", "rot", "entity", "temp")
+# Launches the temp variant's hint adds to a request: kernel A for its
+# per-video GroupNorm, kernel B for the FF of each of its two blocks; under
+# UNFUSED also kernel 8 for each block's norm1 and FF LayerNorm (258048 rows).
+TEMP_HINT_LAUNCHES = {"groupnorm": 1, "mlp": 2}
+TEMP_HINT_LAUNCHES_UNFUSED = {"groupnorm": 1, "mlp": 2, "layernorm": 4}
+
+
+def variant_hint_params(torch, variant, seed):
+    """The variant's hint encoder at flagship width, bf16, from a seed, with
+    random values in every zero-initialised leaf (conv_out, stack_2's
+    conv_out, entity_in, entity_out; ~1e-2, as make_params gives the
+    ControlNet's heads) and a random camera projection in place of its
+    identity init, so that each condition reaches the embedding."""
+    from posetraj_torch.core.init import make_init
+    from posetraj_torch.models import controlnet as cn
+    from posetraj_torch.pipeline import ModelBundle
+
+    cfg = ModelBundle.with_variant(variant).controlnet.hint
+    ini = make_init(seed, torch.device("cuda"), torch.bfloat16)
+    hp = cn.init_hint_encoder(ini, cfg)
+    zeros = [hp["stack"]["conv_out"]] + [hp[k] for k in ("entity_in", "entity_out") if k in hp]
+    if "stack_2" in hp:
+        zeros.append(hp["stack_2"]["conv_out"])
+    for node in zeros:
+        node["weight"] = ini.normal(node["weight"].shape, 1e-2).contiguous(memory_format=torch.channels_last)
+    if "cc_projection" in hp:
+        hp["cc_projection"] = ini.linear(cfg.embedding_channels + cfg.camera_dim, cfg.embedding_channels)
+    return cfg, hp
+
+
+def variants_check(torch, ops, native, params, steps, card, base_launches, gn_row):
+    """Phase 8. (a) kernel A at the temp variant's GroupNorm shape; (b) each
+    variant's hint embedding at 14x576x1024 on the CFG batch, kernels
+    against plain, launches, and each condition moving the embedding; (c)
+    bbox, cam, rot and temp through SVDControlNetPipeline, one request
+    each, cam twice with two cameras; entity through one controlnet_forward.
+    The ControlNet, UNet, VAE and CLIP are phase 3's parameters; only the
+    hint encoder is swapped. Fails on any miss."""
+    from posetraj_torch.configs import KernelConfig, use_kernels
+    from posetraj_torch.models import controlnet as cn
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline
+    from posetraj_torch.pipeline import svd_controlnet as pipe_m
+
+    groupnorm = ops[0]
+    F = torch.nn.functional
+    dev, bf, f, hh, ww = "cuda", torch.bfloat16, 14, 576, 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(808)
+    say(f"phase 8: hint variants at 14x{hh}x{ww} on {card}")
+
+    # (a) A at (2, F*h*w, 320): the temp variant's per-video GroupNorm, no
+    # addend, no SiLU; 82.6 MB a sample, more than the card's shared memory,
+    # so the sample streams twice. Tolerance as A's in phase 2.
+    tol = 2e-2
+    x = (torch.randn(2, f * (hh // 8) * (ww // 8), 320, generator=g, device=dev) + 0.5).to(bf)
+    w = torch.rand(320, generator=g, device=dev) + 0.5
+    b = torch.randn(320, generator=g, device=dev) * 0.1
+    run_k = lambda: groupnorm.group_norm_kernel(x, w, b, 32, 1e-6, False)
+    run_p = lambda: groupnorm.group_norm_plain(x, w, b, 32, 1e-6, False)
+    err, scale, rel_rms, ok = compare(run_k(), run_p(), tol)
+    gn_row["max_abs_err"] = max(gn_row["max_abs_err"], err)
+    ms, plain = cuda_ms(run_k), cuda_ms(run_p)
+    xc = x.transpose(1, 2)
+    lib = cuda_ms(lambda: F.group_norm(xc, 32, w.to(bf), b.to(bf), 1e-6))
+    bnd, by = bound_ms(2 * x.numel() * 2, 10 * x.numel(), FP32_FLOPS)
+    say(f"  (a) groupnorm {tuple(x.shape)} bf16 eps 1e-6 (temp hint): max_abs_err={err:.4g} (|ref|max {scale:.3g}, "
+        f"tol {tol:g}x) rel_rms={rel_rms:.3g} ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd:.4f} ({by}) "
+        f"F.group_norm_ms={lib:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("kernel A disagrees with its plain version at the temp hint's shape")
+    del x, xc
+    torch.cuda.empty_cache()
+
+    # (b) The hint embedding of each variant on the CFG batch (2, 14, 576,
+    # 1024, 3), kernels against plain. The check is on the variant's part,
+    # the embedding minus the first conv stack's output, with kernel B's
+    # tolerances (3e-2 of its max, 1e-2 rel RMS: bf16 roundings through
+    # A, the block's attention and B). Each condition is then changed (bbox:
+    # to the blank map) and must move the variant's part by more than 1e-3
+    # rel RMS. The bbox stack's output is mostly its biases' (each random
+    # fan-in layer keeps about a third of its input's variance), so a
+    # blank map moves it by a few parts in a thousand; the other
+    # conditions move theirs by O(1). Without a kernel in the variant the
+    # kernel and plain runs are the same bits, so 1e-3 is far above noise.
+    tol, rms_tol, moved_tol = 3e-2, 1e-2, 1e-3
+    control = (torch.rand(2, f, hh, ww, 3, generator=g, device=dev) * 2 - 1).to(bf)
+    conds = {
+        "bbox": ("bbox_cond", (torch.rand(2, f, hh, ww, 3, generator=g, device=dev) * 2 - 1).to(bf),
+                 torch.full((2, f, hh, ww, 3), -1.0, device=dev, dtype=bf)),
+        "cam": ("camera_cond", torch.randn(2, f, 12, generator=g, device=dev),
+                torch.randn(2, f, 12, generator=g, device=dev)),
+        "rot": ("rot_id", torch.tensor([1, 1], device=dev), torch.tensor([0, 0], device=dev)),
+        "entity": ("entity_cond", torch.randn(1, hh // 8, ww // 8, 320, generator=g, device=dev).to(bf),
+                   torch.randn(1, hh // 8, ww // 8, 320, generator=g, device=dev).to(bf)),
+    }
+    hints = {}
+    ok_all = True
+    with torch.inference_mode(), use_kernels(KernelConfig()):
+        for i, v in enumerate(VARIANTS):
+            cfg, hp = variant_hint_params(torch, v, 900 + i)
+            hints[v] = hp
+            name, c1, c2 = conds.get(v, (None, None, None))
+            kw = {name: c1} if name else {}
+            run = lambda **k: cn.hint_encoder(hp, cfg, control, f, compute_dtype=bf, **{**kw, **k})
+            native.reset_launches()
+            got = run()
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in native.LAUNCHES.items() if n}
+            hint_ms = cuda_ms(run, reps=3, inner=1)
+            want_launched = TEMP_HINT_LAUNCHES if v == "temp" else {}
+            native.reset_launches()
+            with plain_versions(ops):
+                want = run()
+            plain_launches = sum(native.LAUNCHES.values())
+            stack = cn._conv_stack(hp["stack"], control.reshape(2 * f, hh, ww, 3), bf)
+            err, scale, rel_rms, ok = compare(got, want, tol, stack, rms_tol)
+            moved = float((run(**{name: c2}).float() - got.float()).norm() / (got.float() - stack.float()).norm()) \
+                if name else None
+            ok = (ok and launched == want_launched and plain_launches == 0 and bool(torch.isfinite(got).all())
+                  and got.shape == (2 * f, hh // 8, ww // 8, 320) and (moved is None or moved > moved_tol))
+            ok_all &= ok
+            say(f"  (b) {v:6s} hint {tuple(got.shape)}: vs plain max_abs_err={err:.4g} (|variant part|max "
+                f"{scale:.3g}, tol {tol:g}x) rel_rms={rel_rms:.3g} (tol {rms_tol:g}); launches {launched} "
+                f"(expected {want_launched}; plain {plain_launches}); "
+                + (f"another {name} moves it by {moved:.3g} rel (must exceed {moved_tol:g}); " if name else "")
+                + f"{hint_ms:.2f} ms {'ok' if ok else 'FAIL'}")
+            del got, want, stack
+        # temp under the un-fused switches: its blocks' LayerNorms go to
+        # kernel 8, B runs without its LayerNorm.
+        temp_cfg = ModelBundle.with_variant("temp").controlnet.hint
+        native.reset_launches()
+        with use_kernels(KernelConfig(**UNFUSED)):
+            got = cn.hint_encoder(hints["temp"], temp_cfg, control, f, compute_dtype=bf)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in native.LAUNCHES.items() if n}
+            native.reset_launches()
+            with plain_versions(ops):
+                want = cn.hint_encoder(hints["temp"], temp_cfg, control, f, compute_dtype=bf)
+        stack = cn._conv_stack(hints["temp"]["stack"], control.reshape(2 * f, hh, ww, 3), bf)
+        err, scale, rel_rms, ok = compare(got, want, tol, stack, rms_tol)
+        ok = ok and launched == TEMP_HINT_LAUNCHES_UNFUSED and sum(native.LAUNCHES.values()) == 0
+        ok_all &= ok
+        say(f"  (b) temp   hint under UNFUSED: vs plain max_abs_err={err:.4g} (|variant part|max {scale:.3g}, tol "
+            f"{tol:g}x) rel_rms={rel_rms:.3g} (tol {rms_tol:g}); launches {launched} (expected "
+            f"{TEMP_HINT_LAUNCHES_UNFUSED}) {'ok' if ok else 'FAIL'}")
+        del got, want, stack
+    if not ok_all:
+        fail("a hint variant disagrees with its plain version, launched other kernels than expected, or ignores "
+             "its condition")
+    del conds
+    torch.cuda.empty_cache()
+
+    # (c) One 25-step request per variant through the pipeline, the latents
+    # taken from its denoise loop; launches against phase 4's per request
+    # plus what the temp hint adds. cam: a second request with another
+    # camera, whose latents must differ by more than 1e-3 rel RMS.
+    per_request = {k: n // 2 for k, n in base_launches.items()}
+    if any(n % 2 for n in base_launches.values()):
+        fail(f"phase 4's two requests launched an odd count: {base_launches}")
+    latents = []
+    real_denoise = pipe_m.denoise
+
+    def keep_latents(*a, **k):
+        out = real_denoise(*a, **k)
+        latents.append(out.float().clone())
+        return out
+
+    rng = np.random.RandomState(100)
+    image = rng.rand(1, hh, ww, 3).astype(np.float32)
+    video = rng.rand(1, f, hh, ww, 3).astype(np.float32)
+    extra = {"bbox": [{"bbox_condition": rng.rand(1, f, hh, ww, 3).astype(np.float32)}],
+             "cam": [{"camera_cond": rng.randn(1, f, 12).astype(np.float32)},
+                     {"camera_cond": rng.randn(1, f, 12).astype(np.float32)}],
+             "rot": [{"rot_id": np.array([1])}], "temp": [{}]}
+    req_s, cam_moved = {}, None
+    with mock.patch.object(pipe_m, "denoise", keep_latents):
+        for v, requests in extra.items():
+            bundle = ModelBundle.with_variant(v)
+            pv = dict(params, controlnet=dict(params["controlnet"], controlnet_cond_embedding=hints[v]))
+            pipe = SVDControlNetPipeline(pv, bundle, device="cuda")
+            want = {k: n + (TEMP_HINT_LAUNCHES.get(k, 0) if v == "temp" else 0) for k, n in per_request.items()}
+            for kw in requests:
+                native.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pipe(image, video, height=hh, width=ww, num_frames=f, num_inference_steps=steps, seed=0, **kw)
+                req_s.setdefault(v, []).append(time.perf_counter() - t0)
+                launched = dict(native.LAUNCHES)
+                ok = (out.shape == (1, f, hh, ww, 3) and bool(np.isfinite(out).all()) and out.min() >= 0.0
+                      and out.max() <= 1.0 and launched == want)
+                nonzero = lambda d: {k: n for k, n in d.items() if n}
+                say(f"  (c) {v:6s} SVDControlNetPipeline {steps} steps: {req_s[v][-1]:.3f} s/request on {card}; "
+                    f"output {out.shape} in [{out.min():.3f}, {out.max():.3f}]; launches {nonzero(launched)} "
+                    f"(expected {nonzero(want)}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"the {v} variant's request gave a bad output or launched other kernels than expected")
+            if v == "cam":
+                a, b = latents[-2], latents[-1]
+                cam_moved = float((a - b).norm() / a.norm())
+                say(f"  (c) cam: another camera_cond moves the latents by {cam_moved:.4g} rel RMS (must exceed 1e-3)")
+                if not cam_moved > 1e-3:
+                    fail("the cam variant's latents do not change with camera_cond")
+            latents.clear()
+            del pipe, pv, out
+            torch.cuda.empty_cache()
+
+    # entity: generate() passes no entity map (as in the JAX package), so it
+    # runs through one controlnet_forward at full width, with two maps.
+    bundle = ModelBundle.with_variant("entity")
+    lat_in = torch.randn(2, f, hh // 8, ww // 8, 8, generator=g, device=dev).to(bf)
+    clip = torch.randn(2, 1, 1024, generator=g, device=dev).to(bf)
+    ids = torch.tensor([[6.0, 128.0, 0.02]] * 2, device=dev)
+    cp = dict(params["controlnet"], controlnet_cond_embedding=hints["entity"])
+    ents = [torch.randn(1, hh // 8, ww // 8, 320, generator=g, device=dev).to(bf) for _ in range(2)]
+    with torch.inference_mode():
+        native.reset_launches()
+        outs = [cn.controlnet_forward(cp, bundle.controlnet, lat_in, torch.tensor(1.6, device=dev), clip, ids,
+                                      controlnet_cond=control, entity_cond=e, compute_dtype=bf) for e in ents]
+        torch.cuda.synchronize()
+    down, mid = outs[0]
+    moved = float((outs[1][1].float() - mid.float()).norm() / mid.float().norm())
+    ok = (len(down) == 12 and all(bool(torch.isfinite(t).all()) for t in (*down, mid)) and moved > 1e-3
+          and native.LAUNCHES["mlp"] > 0 and native.LAUNCHES["qkvt"] > 0)
+    say(f"  (c) entity controlnet_forward: {len(down)} residuals + mid {tuple(mid.shape)}, finite; another "
+        f"entity_cond moves the mid residual by {moved:.4g} rel RMS (must exceed 1e-3); launches "
+        f"{ {k: n for k, n in native.LAUNCHES.items() if n} } {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the entity variant's controlnet_forward is not finite or ignores entity_cond")
+    say(f"phase 8: s/request {', '.join(f'{v} {[round(x, 3) for x in t]}' for v, t in req_s.items())} on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4 and 6")
+    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6 and 8")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1335,6 +1579,13 @@ def main() -> None:
 
     # Phase 6: inference at 14x320x576 under the un-fused KernelConfig.
     un = un_fused_check(torch, ops, _native, bundle, params, args.steps, card)
+    torch.cuda.empty_cache()
+
+    # Phase 8: the hint encoder's variants (phase 7 is the summary below).
+    t0 = time.perf_counter()
+    variants_check(torch, ops, _native, params, args.steps, card, launches,
+                   next(r for r in rows if r["name"] == "groupnorm"))
+    say(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's.
     say("kernels: " + " ".join(f"{k}=pass" for k in _native.COUNTERS))

@@ -126,13 +126,27 @@ class UNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class HintEncoderConfig:
-    """Trajectory hint conv encoder. The port has the "base" variant only:
-    conv_in -> [3x3 conv, 3x3 stride-2 conv] x 3 -> zero conv_out."""
+    """Trajectory hint conv encoder (conv_in -> [3x3 conv, 3x3 stride-2
+    conv] x 3 -> zero conv_out) and its variants, one switch each:
+
+      "base"   - the conv stack only
+      "bbox"   - a second conv stack over rendered 3D-bbox maps, summed
+      "cam"    - per-frame camera R|T (camera_dim values) broadcast over
+                 H x W, concatenated, Linear(C_embed + camera_dim, C_embed)
+      "rot"    - a learned rotation-class embedding (num_rot_classes, C) added
+      "entity" - two zero 3x3 convs over an entity map, broadcast over frames
+      "temp"   - temp_num_layers transformer blocks over the frames of each
+                 pixel after the conv stack, with a residual around them
+    """
 
     variant: str = "base"
     conditioning_channels: int = 3
     block_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
     embedding_channels: int = 320  # == UNet block_out_channels[0]
+    camera_dim: int = 12  # 3x3 R flattened + 3 T
+    num_rot_classes: int = 2  # line vs rotational trajectory
+    temp_num_layers: int = 2
+    temp_num_heads: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,13 +157,16 @@ class ControlNetConfig:
     hint: HintEncoderConfig = dataclasses.field(default_factory=HintEncoderConfig)
 
     @classmethod
-    def tiny(cls) -> "ControlNetConfig":
+    def tiny(cls, variant: str = "base") -> "ControlNetConfig":
         u = UNetConfig.tiny()
         return cls(
             unet=u,
             hint=HintEncoderConfig(
+                variant=variant,
                 block_out_channels=(4, 8, 8, 16),
                 embedding_channels=u.block_out_channels[0],
+                temp_num_layers=1,
+                temp_num_heads=2,
             ),
         )
 

@@ -79,6 +79,18 @@ class Init:
             "bias": torch.zeros((out_ch,), device=self.device, dtype=self.dtype),
         }
 
+    def identity_pad_linear(self, in_dim: int, out_dim: int) -> dict:
+        """Identity on the first out_dim inputs, zero on the rest, zero bias:
+        the camera projection's init, which passes the hint embedding
+        through and ignores the camera until training moves it."""
+        w = torch.zeros((out_dim, in_dim), device=self.device, dtype=self.dtype)
+        w[:, :out_dim] = torch.eye(out_dim, device=self.device, dtype=self.dtype)
+        return {"weight": w, "bias": torch.zeros((out_dim,), device=self.device, dtype=self.dtype)}
+
+    def embedding(self, num: int, dim: int) -> dict:
+        """nn.Embedding's default: N(0, 1)."""
+        return {"embedding": self.normal((num, dim))}
+
     def norm(self, channels: int) -> dict:
         return {
             "weight": torch.ones(channels, device=self.device, dtype=torch.float32),

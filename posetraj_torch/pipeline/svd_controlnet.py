@@ -26,6 +26,7 @@ import torch
 from posetraj_torch.configs import (
     CLIPVisionConfig,
     ControlNetConfig,
+    HintEncoderConfig,
     KernelConfig,
     PipelineConfig,
     SchedulerConfig,
@@ -58,9 +59,15 @@ class ModelBundle:
     kernels: Optional[KernelConfig] = None
 
     @classmethod
-    def tiny(cls) -> "ModelBundle":
-        return cls(unet=UNetConfig.tiny(), controlnet=ControlNetConfig.tiny(), vae=VAEConfig.tiny(),
+    def tiny(cls, variant: str = "base") -> "ModelBundle":
+        return cls(unet=UNetConfig.tiny(), controlnet=ControlNetConfig.tiny(variant), vae=VAEConfig.tiny(),
                    clip=CLIPVisionConfig.tiny())
+
+    @classmethod
+    def with_variant(cls, variant: str = "base") -> "ModelBundle":
+        """Flagship configs with the hint encoder's `variant` (bbox, cam,
+        rot, entity, temp)."""
+        return cls(controlnet=ControlNetConfig(hint=HintEncoderConfig(variant=variant)))
 
 
 def resolve_kernels(bundle: ModelBundle) -> ModelBundle:
@@ -119,17 +126,21 @@ def added_time_ids_inference(pcfg: PipelineConfig) -> np.ndarray:
 def denoise(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, latents: torch.Tensor,
             image_latents: torch.Tensor, clip_embeddings: torch.Tensor, control_video: torch.Tensor,
             added_time_ids: torch.Tensor, sigmas: torch.Tensor, timesteps: torch.Tensor,
-            guidance_scale: torch.Tensor, compute_dtype) -> torch.Tensor:
+            guidance_scale: torch.Tensor, compute_dtype, camera_cond: Optional[torch.Tensor] = None,
+            bbox_cond: Optional[torch.Tensor] = None, rot_id: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The sampling loop as a plain Python loop over the sigma ladder.
     latents (B, F, h, w, 4) float32; image_latents (2B, h, w, 4);
-    control_video (2B, F, H, W, 3) in [-1, 1]; guidance_scale (F,)."""
+    control_video (2B, F, H, W, 3) in [-1, 1]; guidance_scale (F,);
+    camera_cond, bbox_cond, rot_id: the hint variant's conditions, already
+    doubled for CFG."""
     b, f = latents.shape[:2]
     dt = compute_dtype
     img_lat = image_latents[:, None].expand(-1, f, -1, -1, -1).to(dt)
     gs = guidance_scale.reshape(1, f, 1, 1, 1).float()
     # The hint embedding depends only on the control video: computed once.
     hint = cn.hint_encoder(params["controlnet"]["controlnet_cond_embedding"], bundle.controlnet.hint,
-                           control_video.to(dt), f, dt)
+                           control_video.to(dt), f, camera_cond=camera_cond, bbox_cond=bbox_cond, rot_id=rot_id,
+                           compute_dtype=dt)
     lat = latents.float()
     for i in range(timesteps.shape[0]):
         sigma, sigma_next, t = sigmas[i], sigmas[i + 1], timesteps[i]
@@ -168,15 +179,19 @@ def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
 
 @torch.inference_mode()
 def generate(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, image, control_video, noises: Dict,
-             added_time_ids, sigmas, timesteps, num_frames: int, output_latent: bool = False, device=None,
-             compute_dtype=None) -> torch.Tensor:
+             added_time_ids, sigmas, timesteps, num_frames: int, camera_cond=None, bbox_cond=None, rot_id=None,
+             output_latent: bool = False, device=None, compute_dtype=None) -> torch.Tensor:
     """Full image -> video program.
 
     image (B, H, W, 3) in [0, 1]; control_video (B, F, H, W, 3) in [0, 1];
     noises {"latents": (B, F, h, w, 4), "image_aug": (B, H, W, 3)} standard
-    normal. Returns (B, F, H, W, 3) float32 in [0, 1], or the final latents
-    (B, F, h, w, 4) if output_latent. `params` must already be on `device`.
-    Runs under the bundle's KernelConfig (resolve_kernels)."""
+    normal. The hint variant's conditions: camera_cond (B, F, camera_dim),
+    bbox_cond (B, F, H, W, 3) in [0, 1], rot_id (B,); each is doubled for
+    CFG, bbox_cond mapped to [-1, 1] first (the entity variant's map is not
+    taken here, so that variant raises). Returns (B, F, H, W, 3) float32 in
+    [0, 1], or the final latents (B, F, h, w, 4) if output_latent. `params`
+    must already be on `device`. Runs under the bundle's KernelConfig
+    (resolve_kernels)."""
     with use_kernels(resolve_kernels(bundle).kernels):
         device = resolve_device(device)
         if device.type == "cuda":
@@ -198,8 +213,13 @@ def generate(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, image, con
         control = torch.cat([control, control], dim=0)
         guidance = torch.linspace(pcfg.min_guidance_scale, pcfg.max_guidance_scale, num_frames, device=device)
         time_ids = torch.cat([time_ids, time_ids], dim=0)
+        cfg2 = lambda x: None if x is None else torch.cat([x, x], dim=0)
+        camera_cond = cfg2(None if camera_cond is None else _as_tensor(camera_cond, device))
+        if bbox_cond is not None:
+            bbox_cond = cfg2(_as_tensor(bbox_cond, device) * 2.0 - 1.0).to(dt)
+        rot_id = cfg2(None if rot_id is None else _as_tensor(rot_id, device, torch.long))
         latents = denoise(params, bundle, pcfg, latents, image_latents, clip_emb, control, time_ids, sigmas, timesteps,
-                          guidance, dt)
+                          guidance, dt, camera_cond, bbox_cond, rot_id)
         if output_latent:
             return latents
         frames = decode_latents(params, bundle, latents, pcfg.decode_chunk_size, dt)
@@ -220,8 +240,9 @@ class SVDControlNetPipeline:
     def __call__(self, image, controlnet_condition, height: int = 576, width: int = 1024, num_frames: int = 14,
                  num_inference_steps: int = 25, min_guidance_scale: float = 1.0, max_guidance_scale: float = 3.0,
                  fps: int = 7, motion_bucket_id: int = 127, noise_aug_strength: float = 0.02,
-                 controlnet_cond_scale: float = 1.0, decode_chunk_size: Optional[int] = None, seed: int = 0,
-                 noises: Optional[Dict] = None, output_type: str = "np"):
+                 controlnet_cond_scale: float = 1.0, decode_chunk_size: Optional[int] = None, camera_cond=None,
+                 bbox_condition=None, rot_id=None, seed: int = 0, noises: Optional[Dict] = None,
+                 output_type: str = "np"):
         pcfg = PipelineConfig(
             height=height, width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
             min_guidance_scale=min_guidance_scale, max_guidance_scale=max_guidance_scale, fps=fps,
@@ -245,9 +266,21 @@ class SVDControlNetPipeline:
         sched = make_schedule(self.bundle.scheduler, num_inference_steps)
         time_ids = np.tile(added_time_ids_inference(pcfg), (b, 1))
         frames = generate(self.params, self.bundle, pcfg, image, control, noises, time_ids, sched.sigmas,
-                          sched.timesteps, num_frames, output_latent=(output_type == "latent"),
-                          device=self.device, compute_dtype=self.compute_dtype)
-        return frames.cpu().numpy()
+                          sched.timesteps, num_frames, camera_cond=camera_cond,
+                          bbox_cond=None if bbox_condition is None else _to_float_array(bbox_condition),
+                          rot_id=rot_id, output_latent=(output_type == "latent"), device=self.device,
+                          compute_dtype=self.compute_dtype)
+        return self._postprocess(frames.cpu().numpy(), output_type)
+
+    @staticmethod
+    def _postprocess(frames: np.ndarray, output_type: str):
+        """The array for output_type "np" and "latent"; for "pil", a list
+        per video of PIL images, one a frame (PIL is imported only here)."""
+        if output_type == "pil":
+            from PIL import Image
+
+            return [[Image.fromarray((fr * 255).round().astype(np.uint8)) for fr in vid] for vid in frames]
+        return frames
 
 
 def _to_float_array(x) -> np.ndarray:

@@ -280,7 +280,8 @@ class Trainer:
     draws come from a generator seeded with tcfg.seed. The bundle's
     KernelConfig is pinned here (resolve_kernels) and scopes every step;
     only the default one is in the port yet (kernel 8 has no backward, and
-    training under the un-fused switches is not ported)."""
+    training under the un-fused switches is not ported), and only the base
+    hint variant."""
 
     def __init__(self, bundle, tcfg: TrainConfig, frozen_params: Dict, controlnet_params: Dict, mesh=None,
                  device=None, compute_dtype=None):
@@ -292,6 +293,9 @@ class Trainer:
         if bundle.kernels != KernelConfig():
             raise NotImplementedError(f"Trainer under {bundle.kernels}: only the default KernelConfig is in the "
                                       "port yet")
+        if bundle.controlnet.hint.variant != "base":
+            raise NotImplementedError(f"Trainer with the {bundle.controlnet.hint.variant!r} hint variant: its "
+                                      "training conditions are not in the port yet")
         if self.device.type == "cuda":
             set_float32_precision()
         self.bundle = bundle

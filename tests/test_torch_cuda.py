@@ -25,6 +25,8 @@ reference's max and 2e-3 rel RMS in bf16 (one rounding apart), 1e-5 and
 M, N and K, takes B's tolerances. D's frame attention alone takes D's
 tolerances; blocks whose gates decline C and D are held to the step's
 (3e-2 relative RMS of the all-plain block: bf16 roundings along a block).
+The temp hint encoder (A, then B in each of its blocks) is held to B's
+tolerances on its branch, the output minus the conv stack's.
 """
 
 import math
@@ -546,3 +548,51 @@ def test_cuda_tiny_generate():
     out = pipe(image, control, height=64, width=64, num_frames=2, num_inference_steps=2, seed=7)
     assert out.shape == (1, 2, 64, 64, 3) and np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
     assert _native.LAUNCHES["groupnorm"] > 0 and _native.LAUNCHES["qkvt"] == 0 and _native.LAUNCHES["temporal"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_temp_hint_shape():
+    """Kernel A at the temp hint encoder's per-video GroupNorm, (B, F*h*w, C)
+    with no addend and no SiLU, eps 1e-6, at a small h*w."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = (torch.randn(2, 14 * 8 * 8, 320, generator=g, device="cuda") + 0.5).to(torch.bfloat16)
+    w = torch.rand(320, generator=g, device="cuda") + 0.5
+    b = torch.randn(320, generator=g, device="cuda") * 0.1
+    _native.reset_launches()
+    got = groupnorm.group_norm_kernel(x, w, b, 32, 1e-6, False)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["groupnorm"] == 1
+    _check(got, groupnorm.group_norm_plain(x, w, b, 32, 1e-6, False), 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_temp_hint_encoder_matches_plain():
+    """A small temp-variant hint encoder (64 embedding channels, so that
+    kernel B takes the FF of its two blocks) on the card: kernel A once and
+    B twice, the variant's part (out minus the conv stack's output) within
+    B's tolerances of the same encoder with kernels A and B switched off."""
+    _need_cuda()
+    from posetraj_torch.configs import HintEncoderConfig, KernelConfig, use_kernels
+    from posetraj_torch.core.init import make_init
+    from posetraj_torch.models import controlnet as cn
+
+    cfg = HintEncoderConfig(variant="temp", block_out_channels=(4, 8, 8, 16), embedding_channels=64,
+                            temp_num_layers=2, temp_num_heads=2)
+    params = cn.init_hint_encoder(make_init(3, torch.device("cuda"), torch.bfloat16), cfg)
+    co = params["stack"]["conv_out"]
+    co["weight"] = (torch.randn(co["weight"].shape, device="cuda") * 0.1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cond = (torch.rand(2, 3, 64, 64, 3, generator=g, device="cuda") * 2 - 1).to(torch.bfloat16)
+    run = lambda: cn.hint_encoder(params, cfg, cond, 3, compute_dtype=torch.bfloat16)
+    _native.reset_launches()
+    with torch.inference_mode(), use_kernels(KernelConfig()):
+        got = run()
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["groupnorm"] == 1 and _native.LAUNCHES["mlp"] == 2
+    with torch.inference_mode(), use_kernels(KernelConfig(fused_groupnorm=False, fused_ff=False)):
+        want = run()
+        stack = cn._conv_stack(params["stack"], cond.reshape(6, 64, 64, 3), torch.bfloat16)
+    assert got.shape == (6, 8, 8, 64) and torch.isfinite(got).all()
+    _check(got, want, 3e-2, stack, 1e-2)

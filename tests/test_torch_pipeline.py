@@ -1,6 +1,7 @@
 """The whole slice: the port's `generate()` against the JAX package's, at the
 tiny bundle, 2 Euler steps, on the same parameters (params_from_jax) and the
-same injected noise, float32 on the CPU. Plus the port's entry-point rules:
+same injected noise, float32 on the CPU; again with the cam hint variant and
+a camera, on the same parameters. Plus the port's entry-point rules:
 it imports nothing of JAX, and without a GPU it runs on the CPU only when
 asked to.
 
@@ -113,6 +114,50 @@ def test_generate_frames_match_jax(slice_inputs, jax_outputs):
     assert got.shape == want.shape == (1, F, H, W, 3)
     assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
     np.testing.assert_allclose(got, want, atol=3e-3, rtol=0)
+
+
+def test_cam_generate_matches_jax(slice_inputs):
+    """The cam hint variant through generate(), on the slice's parameters
+    with a random camera projection cc_projection (332 -> 320 at full
+    width; the identity init would hide a transposed or shifted camera
+    block) and a non-zero camera_cond, against the JAX package's. The
+    camera moves the latents by more than the tolerance."""
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline import ModelBundle, generate
+    from posetraj_torch.pipeline.svd_controlnet import added_time_ids_inference
+    from posetraj_tpu.pipeline import svd_controlnet as jpipe
+
+    _, base, d = slice_inputs
+    jbundle = jpipe.ModelBundle.tiny("cam")
+    hint_cfg = jbundle.controlnet.hint
+    rng = np.random.RandomState(42)
+    cc = {"kernel": jnp.asarray(rng.randn(hint_cfg.embedding_channels + hint_cfg.camera_dim,
+                                          hint_cfg.embedding_channels).astype(np.float32) * 0.1),
+          "bias": jnp.asarray(rng.randn(hint_cfg.embedding_channels).astype(np.float32) * 0.1)}
+    controlnet = dict(base["controlnet"], controlnet_cond_embedding=dict(base["controlnet"]["controlnet_cond_embedding"],
+                                                                        cc_projection=cc))
+    params = dict(base, controlnet=controlnet)
+    camera = rng.randn(1, F, hint_cfg.camera_dim).astype(np.float32)
+    jpcfg = jpipe.PipelineConfig(height=H, width=W, num_frames=F, num_inference_steps=STEPS, decode_chunk_size=F)
+    jsched = jpipe.make_schedule(jbundle.scheduler, STEPS)
+    want = np.asarray(jpipe.generate(params, jbundle, jpcfg, d["image"], d["control"], d["noises"],
+                                     jpipe.added_time_ids_inference(jpcfg), jsched.sigmas, jsched.timesteps, F,
+                                     camera_cond=jnp.asarray(camera), output_latent=True))
+
+    bundle = ModelBundle.tiny("cam")
+    pcfg = PipelineConfig(height=H, width=W, num_frames=F, num_inference_steps=STEPS, decode_chunk_size=F)
+    sched = make_schedule(bundle.scheduler, STEPS)
+    tparams = {name: params_from_jax(p) for name, p in params.items()}
+    run = lambda cam: generate(tparams, bundle, pcfg, d["image"], d["control"], d["noises"],
+                               added_time_ids_inference(pcfg), sched.sigmas, sched.timesteps, F, camera_cond=cam,
+                               output_latent=True, device="cpu").numpy()
+    got = run(camera)
+    assert got.shape == want.shape == (1, F, H // 8, W // 8, 4)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= 3e-3 * scale, (err, scale)
+    assert float(np.abs(run(None) - got).max()) > 3e-2 * scale
 
 
 def test_pipeline_call_runs_on_cpu_when_asked():
