@@ -6,12 +6,13 @@ for inference and for training.
     python3 chip_smoke.py            # every phase, as the checks run it
     python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6 and 8
 
-Phases, one line of output each (more for phases 2, 5, 6 and 8):
+Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
      libraries from posetraj_torch/csrc, one nvcc per source, in parallel;
      the count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
      SASS of the flash, mlp, qkvt and temporal libraries, and of HMMA
      (mma.sync) and UTMALDG in D's frame_attn, which must all be above 0;
+     the global loads in kernel 8's SASS, which must all be LDG.E.128;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (and the 320x576 ones, whose S is ragged for the attention
      tiles), bf16, with its error against the stated tolerance (for the
@@ -32,8 +33,13 @@ Phases, one line of output each (more for phases 2, 5, 6 and 8):
      head_dim 128 case; kernel 7 (forward-only flash attention) at the
      un-fused path's shapes and a ragged rectangular one; kernel 6 (packed
      QKV, head_dim 128) with its lse and its gradient through
-     FlashAttentionQKV; kernel 8 (row LayerNorm) at three widths in bf16
-     and one in float32; then the gates of C and D: spatial and temporal
+     FlashAttentionQKV; kernel 8 (row LayerNorm) at the un-fused path's
+     three widths and the temp hint's 258048 rows in bf16 and one width in
+     float32, each timed beside its bound, its plain version and
+     F.layer_norm, on copies of x that do not fit in L2, a call by CUDA
+     events and its device time under torch.profiler: by device time it
+     must beat F.layer_norm at each and reach half its bound at (80640,
+     320); then the gates of C and D: spatial and temporal
      blocks at head_dim 16 and 128 run without C or D and agree with the
      plain block, and a direct call at head_dim 16 still raises;
   3. one denoise step (ControlNet -> UNet, CFG batch) at full SVD width and
@@ -43,8 +49,10 @@ Phases, one line of output each (more for phases 2, 5, 6 and 8):
      torch.profiler, its device time grouped by kernel (kernel A's device
      launches must equal its calls: one launch a call);
   4. SVDControlNetPipeline at full width (UNet 320..1280, ViT-H CLIP, VAE
-     128..512), 14x576x1024 with CFG, two requests; launch counts of every
-     kernel over that run, output checked for shape, finiteness and range;
+     128..512), 14x576x1024 with CFG, two requests, the denoise loop a
+     captured CUDA graph (captured in the first request, replayed in the
+     second); launch counts of every kernel over that run, output checked
+     for shape, finiteness and range;
   5. training at full width, 14x320x576, batch 1, TrainConfig defaults:
      (a) one micro-step's loss and ControlNet gradients with the kernels
      against the same step with every wrapper plain, and with uniform
@@ -71,6 +79,20 @@ Phases, one line of output each (more for phases 2, 5, 6 and 8):
      SVDControlNetPipeline, one request each (cam a second one with
      another camera, whose latents must differ), launches against phase
      4's per request; entity through controlnet_forward with two maps;
+  9. the denoise loop as one captured CUDA graph against the eager loop
+     (pipeline.svd_controlnet.denoise_eager), 4 steps from the same inputs,
+     at 14x576x1024 default and 14x320x576 un-fused: bitwise equal where
+     two eager runs are (else within their spread), the same launches,
+     s/denoise-step eager and graphed (the median of 8 calls each, taken
+     in turns), capture and instantiation seconds, device time and busy
+     share under torch.profiler, where each port kernel's device launches
+     in the graphed run must equal the eager run's and, for the kernels of
+     one device launch a call, the launches the graph's replays added to
+     the counts; the un-fused graphed step must
+     not be slower than the eager one; then generate() called directly,
+     twice with the eager loop (the loop before the graph) and twice with
+     the graph (the first call captures it), s/request at each
+     configuration, the outputs equal where two eager runs are;
   7. (printed last) a `kernels` summary, the JSON line of kernel numbers,
      and the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
@@ -83,6 +105,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import itertools
 import json
 import os
 import re
@@ -100,6 +124,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# Bytes of distinct inputs a timing takes in turn where one input would stay
+# in the 50 MB L2 of an H100 SXM: four times it.
+L2_ROTATE = 4 * 50 * 2**20
 
 KERNEL_META = {
     "groupnorm": ("posetraj_torch/csrc/groupnorm.cu", "posetraj_tpu/ops/pallas_groupnorm.py:209"),
@@ -142,6 +169,12 @@ def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def rotating(inputs, fn):
+    """A call of fn on the next of `inputs` in turn."""
+    turn = itertools.cycle(inputs)
+    return lambda: fn(next(turn))
 
 
 def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
@@ -588,31 +621,59 @@ def check_kernels(torch, ops):
         del qkv, o, lse, o_ref, lse_ref, do, leaf, want
     torch.cuda.empty_cache()
 
-    # 8: row LayerNorm at the un-fused path's three widths (rows B*F*S of
-    # 14x320x576 at levels 0-2) in bf16, and level 1 in float32. x has a
-    # mean of 0.5 beside its unit spread, so a kernel that took E[x^2] -
+    # 8: row LayerNorm at the main paths' shapes: the un-fused path's three
+    # widths (rows B*F*S of 14x320x576 at levels 0-2) and the temp hint's
+    # block LayerNorms (258048 rows) in bf16, and level 1 in float32. x has
+    # a mean of 0.5 beside its unit spread, so a kernel that took E[x^2] -
     # mean^2 in float32 would lose digits; bf16: max error within 1e-2 of
     # the reference's max (one bf16 rounding apart) and rel RMS within 2e-3;
-    # float32: 1e-5 and 1e-6 (summation order).
+    # float32: 1e-5 and 1e-6 (summation order). Each shape is timed beside
+    # its bound, the plain version and F.layer_norm (with w, b in x's type),
+    # on copies of x taken in turn, together more than L2_ROTATE bytes, so
+    # that each call reads its x from HBM as the path does: ms and
+    # library_ms a call by CUDA events, as every row of phase 2; and each
+    # call's device time under torch.profiler. On the main path kernel 8
+    # runs inside the captured denoise graph, where no wrapper runs, so the
+    # gate is on device time: half the bound at (80640, 320), and no slower
+    # than F.layer_norm at every shape. A call's time is printed beside it:
+    # at the small shapes it is the host's (the wrapper's Python and ctypes
+    # against F.layer_norm's C++ dispatch).
+    ln_lines = []
     for case, (m, c, dtype) in enumerate(((28 * 2880, 320, bf), (28 * 720, 640, bf), (28 * 180, 1280, bf),
-                                          (28 * 720, 640, torch.float32))):
+                                          (2 * 14 * 9216, 320, bf), (28 * 720, 640, torch.float32))):
         tol, rms_tol = (1e-2, 2e-3) if dtype == bf else (1e-5, 1e-6)
-        x = rnd(m, c, dtype=dtype) + 0.5
+        x_bytes = m * c * torch.finfo(dtype).bits // 8
+        xs = [rnd(m, c, dtype=dtype) + 0.5 for _ in range(-(-L2_ROTATE // x_bytes))]
         w, b = ln_params(c)
-        run_k = lambda: layernorm.layer_norm_kernel(x, w, b, 1e-5)
-        run_p = lambda: layernorm.layer_norm_plain(x, w, b, 1e-5)
-        err, sc, rr, ok = compare(run_k(), run_p(), tol, rms_tol=rms_tol)
-        report("layernorm", f"({m},{c}) {str(dtype).replace('torch.', '')}", err, sc, rr, ok, tol, rms_tol)
+        err, sc, rr, ok = compare(layernorm.layer_norm_kernel(xs[0], w, b, 1e-5),
+                                  layernorm.layer_norm_plain(xs[0], w, b, 1e-5), tol, rms_tol=rms_tol)
+        label = f"({m},{c}) {str(dtype).replace('torch.', '')}"
+        report("layernorm", label, err, sc, rr, ok, tol, rms_tol)
+        wb, bb = w.to(dtype), b.to(dtype)
+        run_k = rotating(xs, lambda x: layernorm.layer_norm_kernel(x, w, b, 1e-5))
+        run_l = rotating(xs, lambda x: F.layer_norm(x, (c,), wb, bb, 1e-5))
+        run_p = rotating(xs, lambda x: layernorm.layer_norm_plain(x, w, b, 1e-5))
+        dev_ms, lib_dev_ms = profiled_kernel_ms(torch, run_k, "", 10), profiled_kernel_ms(torch, run_l, "", 10)
+        ms, lib = cuda_ms(run_k, reps=7, inner=10), cuda_ms(run_l, reps=7, inner=10)
+        plain = cuda_ms(run_p)
+        bnd, by = bound_ms(2 * x_bytes + 2 * 4 * c, 8.0 * m * c, FP32_FLOPS)
+        fast = lib_dev_ms >= dev_ms and (case != 0 or dev_ms <= 2 * bnd)
+        ok_all &= fast
+        pl = layernorm.plan(m, c, dtype, *layernorm.occupancy(xs[0].device, dtype,
+                                                              layernorm.layout(c, dtype.itemsize)[1]))
+        ln_lines.append(f"  layernorm {label:22s} plan {pl.lanes} lanes x {pl.vecs} vectors, {pl.grid} CTAs; "
+                        f"x {len(xs)} copies; device ms={dev_ms:.4f} bound_ms={bnd:.4f} ({by}, "
+                        f"{bnd / dev_ms:.0%} of it) F.layer_norm device ms={lib_dev_ms:.4f} "
+                        + ("ok" if fast else "FAIL (slower than F.layer_norm" + (" or than twice its bound)"
+                                                                               if case == 0 else ")"))
+                        + f"; a call by CUDA events: ms={ms:.4f} ({bnd / ms:.0%} of the bound) F.layer_norm "
+                        f"{lib:.4f} ({'faster' if ms <= lib else 'slower'}); plain_ms={plain:.4f}")
         if case == 0:
-            ms, plain = cuda_ms(run_k, reps=7, inner=10), cuda_ms(run_p)
-            wb, bb = w.to(dtype), b.to(dtype)
-            lib = cuda_ms(lambda: F.layer_norm(x, (c,), wb, bb, 1e-5), reps=7, inner=10)
-            bnd, by = bound_ms(2 * m * c * x.element_size() + 2 * 4 * c, 8.0 * m * c, FP32_FLOPS)
             rows.append(dict(name="layernorm", max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                              library_ms=lib))
         else:
             rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
-        del x
+        del xs
     torch.cuda.empty_cache()
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -627,6 +688,8 @@ def check_kernels(torch, ops):
     for r in gemm_shapes:
         say(f"  gemm {r['label']:26s} (M,N,K)={r['shape']} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"F.linear {r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    for line in ln_lines:
+        say(line)
     return rows, ok_all
 
 
@@ -1062,6 +1125,9 @@ def train_check(torch, ops, native, bundle, params, f, h, w):
 
 
 def run_pipeline(torch, native, bundle, params, steps, height, width):
+    """SVDControlNetPipeline for two requests; the first captures the
+    denoise loop's graph (its capture seconds are returned last), the second
+    replays it."""
     from posetraj_torch.pipeline import SVDControlNetPipeline
     from posetraj_torch.pipeline import svd_controlnet as pipe_m
 
@@ -1077,7 +1143,7 @@ def run_pipeline(torch, native, bundle, params, steps, height, width):
         denoise_s.append(time.perf_counter() - t0)
         return out
 
-    outs, req_s = [], []
+    outs, req_s, capture_s = [], [], []
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(pipe_m, "denoise", timed_denoise):
         native.reset_launches()
@@ -1090,8 +1156,12 @@ def run_pipeline(torch, native, bundle, params, steps, height, width):
             outs.append(pipe(image, control, height=height, width=width, num_frames=14, num_inference_steps=steps,
                              seed=seed))
             req_s.append(time.perf_counter() - t0)
+            capture_s.append(pipe.graph.capture_s if seed == 0 else 0.0)
         launches = dict(native.LAUNCHES)
-    return outs, req_s, denoise_s, launches, torch.cuda.max_memory_allocated()
+    # The second request replays the first one's graph: it captured nothing.
+    if pipe.graph.capture_s != capture_s[0]:
+        fail("the pipeline's second request captured its denoise graph anew")
+    return outs, req_s, denoise_s, launches, torch.cuda.max_memory_allocated(), capture_s[0]
 
 
 # Launches per denoise step under the default KernelConfig at 14x576x1024
@@ -1164,7 +1234,7 @@ def un_fused_check(torch, ops, native, bundle, params, steps, card):
     if not ok:
         fail("the un-fused step disagrees, cannot see kernel 7, or launched other kernels than predicted")
 
-    outs, req_s, denoise_s, launches, peak = run_pipeline(
+    outs, req_s, denoise_s, launches, peak, capture_s = run_pipeline(
         torch, native, dataclasses.replace(bundle, kernels=cfg), params, steps, height, width)
     for out in outs:
         if out.shape != (1, 14, height, width, 3):
@@ -1174,7 +1244,8 @@ def un_fused_check(torch, ops, native, bundle, params, steps, card):
     n_steps = 2 * steps
     per_step = {k: launches[k] / n_steps for k in launches}
     ok = all(launches[k] == n * n_steps for k, n in UNFUSED_PER_STEP.items())
-    say(f"  (b) SVDControlNetPipeline, {steps} steps, 2 requests: s/request={[round(x, 3) for x in req_s]} "
+    say(f"  (b) SVDControlNetPipeline, {steps} steps, 2 requests (the denoise loop a captured graph, "
+        f"{capture_s:.2f} s to capture in the first): s/request={[round(x, 3) for x in req_s]} "
         f"s/denoise-step={[round(x / steps, 4) for x in denoise_s]} peak_mem={peak / 2**30:.2f} GiB "
         f"launches={launches} per step={per_step} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1415,6 +1486,172 @@ def variants_check(torch, ops, native, params, steps, card, base_launches, gn_ro
     say(f"phase 8: s/request {', '.join(f'{v} {[round(x, 3) for x in t]}' for v, t in req_s.items())} on {card}")
 
 
+# Phase 9: the denoise loop as one captured CUDA graph against the eager loop.
+GRAPH_STEPS = 4
+# Rounds of (eager, graph, graph, eager) calls that time s/denoise-step.
+GRAPH_TIME_ROUNDS = 4
+# Profile groups (_kernel_group) of the port's kernels that launch one device
+# kernel a counted call, and their counters (C's call launches one flash
+# forward, its core). B's calls launch two or three kernels and C's and D's
+# projection GEMMs three a call with the LayerNorm pre-pass: those are held
+# to the eager run's device launches only.
+ONE_LAUNCH_GROUPS = {
+    "A groupnorm (port)": ("groupnorm",),
+    "8 LayerNorm (port)": ("layernorm",),
+    "D frame attention (port)": ("frame_attn",),
+    "flash attention fwd (port: C's core, 5, 6, 7)": ("qkvt", "flash_fwd", "flash_tq", "flash_qkv"),
+}
+
+
+def graph_check(torch, native, bundle, params, height, width, cfg, per_step, card, label):
+    """Phase 9 at one configuration: GRAPH_STEPS Euler steps of `denoise`
+    (the captured graph: a first call that runs step 0 eagerly, captures
+    and replays; a second call that only replays) against `denoise_eager`
+    twice, on the same inputs at 14 x height x width, CFG, under
+    KernelConfig `cfg`. The graph must equal the eager loop bit for bit
+    where two eager runs are equal (else differ no more than they do), and
+    launch what the eager loop launches, `per_step` a step, counted by the
+    wrappers and by the profiler (ONE_LAUNCH_GROUPS). s/denoise-step is the
+    median over GRAPH_TIME_ROUNDS rounds of eager, graph, graph, eager
+    calls, each after a garbage collection, so that a drift of the card's
+    clock weighs on both loops alike and no collection lands in one call.
+    Returns the eager and the graphed s/denoise-step; fails on a miss."""
+    from posetraj_torch.configs import PipelineConfig, use_kernels
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline import svd_controlnet as pipe_m
+
+    n, f, h, w = GRAPH_STEPS, 14, height // 8, width // 8
+    g = torch.Generator(device="cuda")
+    g.manual_seed(909)
+    sched = make_schedule(bundle.scheduler, n)
+    pcfg = PipelineConfig(height=height, width=width, num_frames=f, num_inference_steps=n)
+    image_latents = torch.randn(1, h, w, 4, generator=g, device="cuda")
+    args = (params, bundle, pcfg, torch.randn(1, f, h, w, 4, generator=g, device="cuda") * float(sched.sigmas[0]),
+            torch.cat([torch.zeros_like(image_latents), image_latents]),
+            torch.randn(2, 1, 1024, generator=g, device="cuda").to(torch.bfloat16),
+            (torch.rand(2, f, height, width, 3, generator=g, device="cuda") * 2 - 1).to(torch.bfloat16),
+            torch.tensor([[6.0, 128.0, 0.02]] * 2, device="cuda"), torch.as_tensor(sched.sigmas, device="cuda"),
+            torch.as_tensor(sched.timesteps, device="cuda"), torch.linspace(1.0, 3.0, f, device="cuda"),
+            torch.bfloat16)
+    runner = pipe_m.DenoiseGraph()
+    eager = lambda: pipe_m.denoise_eager(*args)
+    graphed = lambda: pipe_m.denoise(*args, graph=runner)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(native.LAUNCHES)
+
+    with torch.inference_mode(), use_kernels(cfg):
+        outs, secs, launched = {}, {}, {}
+        for name, fn in (("eager", eager), ("eager again", eager), ("graph, first call", graphed),
+                         ("graph", graphed)):
+            native.reset_launches()
+            outs[name], secs[name], launched[name] = timed(fn)
+        samples = {"eager": [], "graph": []}
+        for _ in range(GRAPH_TIME_ROUNDS):
+            for name, fn in (("eager", eager), ("graph", graphed), ("graph", graphed), ("eager", eager)):
+                gc.collect()
+                samples[name].append(timed(fn)[1] / n)
+        native.reset_launches()
+        eager_prof = profile_step(torch, eager)
+        native.reset_launches()
+        graph_prof = profile_step(torch, graphed)
+        added = dict(native.LAUNCHES)
+    # The replays' counts are added by DenoiseGraph, not counted at a launch:
+    # the profiler's device launches hold them.
+    groups = sorted(set(ONE_LAUNCH_GROUPS) | {k for p in (eager_prof, graph_prof) for k in p[1] if "(port" in k})
+    device_n = {name: {k: prof[1].get(k, (0.0, 0))[1] for k in groups}
+                for name, prof in (("eager", eager_prof), ("graph", graph_prof))}
+    one_call = {k: sum(added[c] for c in counters) for k, counters in ONE_LAUNCH_GROUPS.items()}
+    device_ok = (device_n["graph"] == device_n["eager"] and device_n["graph"]["A groupnorm (port)"] > 0
+                 and all(device_n["graph"][k] == n for k, n in one_call.items()))
+    maxdiff = lambda a, b: float((outs[a] - outs[b]).abs().max())
+    spread = maxdiff("eager", "eager again")
+    diffs = [maxdiff("graph, first call", "eager"), maxdiff("graph", "eager")]
+    agree = max(diffs) <= spread
+    launches_ok = (all(launched[k] == launched["eager"] for k in launched)
+                   and all(launched["eager"][k] == c * n for k, c in per_step.items()))
+    eager_s, graph_s = (statistics.median(samples[k]) for k in ("eager", "graph"))
+    device = {k: sum(v[0] for v in prof[1].values()) / n for k, prof in (("eager", eager_prof), ("graph", graph_prof))}
+    ok = agree and launches_ok and device_ok and bool(torch.isfinite(outs["graph"]).all())
+    say(f"  {label} 14x{height}x{width}, {n} steps: eager vs eager max diff {spread:.4g}; graph vs eager "
+        f"{diffs[0]:.4g} (first call) / {diffs[1]:.4g} (replays only): "
+        f"{('bitwise equal' if max(diffs) == 0 else 'within the eager spread') if agree else 'FAIL'}")
+    say(f"    launches over {n} steps: eager {launched['eager']}, graph {launched['graph']} (predicted {per_step} a "
+        f"step) {'ok' if launches_ok else 'FAIL'}")
+    short = lambda d: {k.split(" (")[0]: n for k, n in d.items() if n}
+    say(f"    device launches of the port's kernels under torch.profiler, {n} steps: eager {short(device_n['eager'])}, "
+        f"graph {short(device_n['graph'])}; added to the counts by the graph's run for the kernels of one launch "
+        f"a call {short(one_call)} {'ok' if device_ok else 'FAIL'}")
+    span = lambda k: f"{min(samples[k]):.4f}-{max(samples[k]):.4f}"
+    say(f"    s/denoise-step, median of {len(samples['eager'])} calls each: eager {eager_s:.4f} ({span('eager')}), "
+        f"graphed {graph_s:.4f} ({span('graph')}) ({eager_s / graph_s:.3f}x); first graphed call "
+        f"{secs['graph, first call']:.3f} s, of it capture + instantiate {runner.capture_s:.3f} s")
+    for name, prof in (("eager", eager_prof), ("graphed", graph_prof)):
+        key = "graph" if name == "graphed" else "eager"
+        wall = (graph_s if key == "graph" else eager_s) * 1e3
+        say(f"    {name} under torch.profiler: device {device[key]:.2f} ms a step, wall {prof[0] / n:.2f} ms a step "
+            f"profiled ({device[key] * n / prof[0]:.3f} busy), {wall:.2f} ms unprofiled ({device[key] / wall:.3f} "
+            f"busy) on {card}")
+    if not ok:
+        fail(f"the denoise graph ({label}) disagrees with the eager loop or launched other kernels than it")
+    return eager_s, graph_s
+
+
+def direct_generate_check(torch, bundle, params, steps, height, width, cfg, card, label):
+    """generate() called directly, as a script calls it, at 14 x height x
+    width under KernelConfig `cfg`, `steps` steps: with the eager loop
+    (denoise_eager, the loop before the graph), then with the module's
+    captured graph twice (the first call captures it, the second replays
+    it), then with the eager loop again. Prints s/request of each; fails
+    unless the second graphed call reuses the first one's graph and the
+    graph's outputs equal the eager loop's where the two eager runs are
+    equal (else differ no more than they do)."""
+    import dataclasses
+
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline import svd_controlnet as pipe_m
+
+    b = dataclasses.replace(bundle, kernels=cfg)
+    rng = np.random.RandomState(300)
+    image = rng.rand(1, height, width, 3).astype(np.float32)
+    control = rng.rand(1, 14, height, width, 3).astype(np.float32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(301)
+    noises = {"latents": torch.randn(1, 14, height // 8, width // 8, 4, generator=g, device="cuda"),
+              "image_aug": torch.randn(1, height, width, 3, generator=g, device="cuda")}
+    sched = make_schedule(b.scheduler, steps)
+    pcfg = PipelineConfig(height=height, width=width, num_frames=14, num_inference_steps=steps)
+    eager_loop = lambda *a, graph=None, **k: pipe_m.denoise_eager(*a, **k)
+    outs, secs, graphs = {}, {}, []
+    for name in ("eager", "graph, first call", "graph", "eager again"):
+        loop = mock.patch.object(pipe_m, "denoise", eager_loop) if "eager" in name else contextlib.nullcontext()
+        with loop:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = pipe_m.generate(params, b, pcfg, image, control, noises, [[6.0, 128.0, 0.02]],
+                                         sched.sigmas, sched.timesteps, 14)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        if "graph" in name:
+            graphs.append((pipe_m._SHARED_GRAPH._graph, pipe_m._SHARED_GRAPH.capture_s))
+    maxdiff = lambda a, c: float((outs[a] - outs[c]).abs().max())
+    spread = maxdiff("eager", "eager again")
+    diff = max(maxdiff("graph, first call", "eager"), maxdiff("graph", "eager"))
+    reused = graphs[1][0] is graphs[0][0] is not None
+    ok = diff <= spread and reused and bool(torch.isfinite(outs["graph"]).all())
+    say(f"  {label} generate() 14x{height}x{width}, {steps} steps, called directly: s/request eager loop "
+        f"{secs['eager']:.3f} / {secs['eager again']:.3f}, graph {secs['graph, first call']:.3f} (first call, "
+        f"capture + instantiate {graphs[0][1]:.3f} s) / {secs['graph']:.3f} (replays its graph: {reused}); "
+        f"graph vs eager max diff {diff:.4g} (eager vs eager {spread:.4g}) {'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        fail(f"generate() ({label}) called directly: its graph disagrees with the eager loop or was not reused")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6 and 8")
@@ -1469,13 +1706,31 @@ def main() -> None:
             say(f"  temporal library SASS, frame_attn: {hmma} HMMA, {utmaldg} UTMALDG instructions")
             if not hmma or not utmaldg:
                 fail("D's frame attention has no HMMA or no UTMALDG instruction: it is not on mma.sync and TMA")
+    # Kernel 8 moves x, y, w and b in 16-byte vectors only: every global
+    # load in its library's SASS must be LDG.E.128 (a scalar LDG.E would be
+    # the per-element w/b loads of its first port).
+    sass = subprocess.run([cuobjdump, "-sass", str(_native._lib_path("layernorm"))], capture_output=True, text=True,
+                          timeout=300).stdout
+    # Its launch bounds (csrc/layernorm.cu target_registers) must leave
+    # every instance the registers it needs: ptxas must spill nothing.
+    spills = re.findall(r"(\d+) bytes spill stores", _native.build_log("layernorm"))
+    if any(int(n) for n in spills):
+        fail(f"kernel 8 spills registers ({spills} bytes of spill stores by instance): its register target "
+             "is too low")
+    loads = re.findall(r"\bLDG\.E[.A-Z0-9_]*", sass)
+    wide = sum(".128" in ld for ld in loads)
+    say(f"  layernorm library SASS: {wide} LDG.E.128, {len(loads) - wide} narrower global loads "
+        f"({sorted(set(loads))})")
+    if not wide or wide != len(loads):
+        fail("kernel 8's SASS has a global load narrower than 16 bytes, or none at all")
     say(f"phase 1: {torch.cuda.get_device_name(0)} | {card} | kernels built in {build_s:.1f} s")
 
     # Phase 2
     say("phase 2: kernels vs plain versions (bf16 unless stated)")
     rows, kernels_ok = check_kernels(torch, ops)
     if not kernels_ok:
-        fail("a kernel disagrees with its plain version")
+        fail("a kernel disagrees with its plain version, or kernel 8 is slower than F.layer_norm or than twice "
+             "its bound")
     if not gates_check(torch, ops, _native):
         fail("a block whose gate declines C or D raised, launched them, or disagrees with the plain block")
 
@@ -1512,7 +1767,8 @@ def main() -> None:
              "than predicted")
 
     # Phase 4
-    outs, req_s, denoise_s, launches, peak = run_pipeline(torch, _native, bundle, params, args.steps, 576, 1024)
+    outs, req_s, denoise_s, launches, peak, capture_s = run_pipeline(torch, _native, bundle, params, args.steps,
+                                                                      576, 1024)
     for out in outs:
         if out.shape != (1, 14, 576, 1024, 3):
             fail(f"output shape {out.shape}")
@@ -1520,7 +1776,8 @@ def main() -> None:
             fail("output not finite or outside [0, 1]")
     if any(launches[k] == 0 for k in inference_kernels) or any(launches[k] for k in off_default):
         fail(f"inference launched a kernel it should not, or missed one: {launches}")
-    say(f"phase 4: SVDControlNetPipeline 14x576x1024 CFG, {args.steps} steps, 2 requests on {card}: "
+    say(f"phase 4: SVDControlNetPipeline 14x576x1024 CFG, {args.steps} steps, 2 requests on {card} (the denoise "
+        f"loop a captured graph, {capture_s:.2f} s to capture in the first): "
         f"s/request={[round(s, 3) for s in req_s]} s/denoise-step={[round(s / args.steps, 4) for s in denoise_s]} "
         f"peak_mem={peak / 2**30:.1f} GiB launches={launches}")
 
@@ -1586,6 +1843,19 @@ def main() -> None:
     variants_check(torch, ops, _native, params, args.steps, card, launches,
                    next(r for r in rows if r["name"] == "groupnorm"))
     say(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # Phase 9: the denoise loop's captured graph against the eager loop.
+    say(f"phase 9: the denoise loop as one captured CUDA graph vs the eager loop on {card}")
+    graph_check(torch, _native, bundle, params, 576, 1024, KernelConfig(), DEFAULT_PER_STEP, card, "default")
+    torch.cuda.empty_cache()
+    eager_s, graph_s = graph_check(torch, _native, bundle, params, 320, 576, KernelConfig(**UNFUSED),
+                                   UNFUSED_PER_STEP, card, "un-fused")
+    if graph_s > eager_s:
+        fail("the un-fused graphed denoise step is slower than its eager step")
+    torch.cuda.empty_cache()
+    direct_generate_check(torch, bundle, params, args.steps, 576, 1024, KernelConfig(), card, "default")
+    direct_generate_check(torch, bundle, params, args.steps, 320, 576, KernelConfig(**UNFUSED), card, "un-fused")
+    torch.cuda.empty_cache()
 
     # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's.
     say("kernels: " + " ".join(f"{k}=pass" for k in _native.COUNTERS))

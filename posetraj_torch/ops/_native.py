@@ -15,6 +15,11 @@ launch it (two launches a call) and where ops/gemm.py launches it alone; D's
 frame attention counts under `frame_attn` in each D call and where
 ops/temporal.frame_attention_kernel launches it alone.
 
+A CUDA graph replays launches that no wrapper sees: `capturing_launches`
+takes what a capture counted back out of LAUNCHES and keeps it as the
+launches of one replay, and the code that replays the graph adds those with
+`add_launches` once a replay. So the counts stay device launches.
+
 A launcher writes into fresh outputs that autograd knows nothing of, so
 `check_cuda` refuses a tensor that requires grad while grad mode is on: a
 gradient goes through the module's `torch.autograd.Function`, never around
@@ -23,6 +28,7 @@ it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -50,6 +56,26 @@ _FUNCS: Dict[tuple, object] = {}  # (library, entry point) -> the ctypes functio
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Around a CUDA graph's capture, which launches nothing: yields a dict
+    that holds, on exit, each counter's increase during the block (the
+    launches of one replay), and takes that increase back out of LAUNCHES."""
+    before = dict(LAUNCHES)
+    per_replay: Dict[str, int] = {}
+    try:
+        yield per_replay
+    finally:
+        for name, n in before.items():
+            per_replay[name] = LAUNCHES[name] - n
+            LAUNCHES[name] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -145,7 +171,7 @@ def call(name: str, fn: str, argtypes, *args, count: str = "", also=()) -> None:
         f.argtypes = list(argtypes) + [P]
         f.restype = ctypes.c_int
         _FUNCS[(name, fn)] = f
-    err = f(*args, P(torch.cuda.current_stream().cuda_stream))
+    err = f(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA error {err}: {library(name).pt_error_string(err).decode()}")
     LAUNCHES[count or name] += 1

@@ -125,6 +125,13 @@ def _workspace(device: torch.device, groups: int):
     return ws
 
 
+def workspaces() -> tuple:
+    """Every device's workspace as it stands. A CUDA graph that captured
+    kernel A holds these, since its launches point into them and a later
+    call with more groups replaces (and frees) a device's workspace."""
+    return tuple(_WORKSPACE.values())
+
+
 def group_norm_kernel(x, weight, bias, num_groups: int, eps: float, act: bool, add=None) -> torch.Tensor:
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"group_norm kernel: dtype {x.dtype} (bf16 or float32 only)")

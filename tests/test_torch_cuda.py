@@ -20,7 +20,11 @@ Kernels 6 and 7 take kernel 5's tolerances, as does the one Hopper
 forward that C, 5, 6 and 7 share, held on each caller's layout with and
 without lse (test_cuda_flash_forward_layouts). Kernel 8: within 1e-2 of the
 reference's max and 2e-3 rel RMS in bf16 (one rounding apart), 1e-5 and
-1e-6 in float32 (summation order). The Hopper GEMM of B, C and D
+1e-6 in float32 (summation order), also at every width of its launch plan's
+sweep and at ragged row counts. generate() and the pipeline, whose denoise
+loop replays a captured CUDA graph on the card, are held bit for bit
+against the eager loop (or within the eager loop's own spread, should two
+eager runs differ), with the same launch counts. The Hopper GEMM of B, C and D
 (csrc/gemm.cuh), held on B's variants and alone on each epilogue at ragged
 M, N and K, takes B's tolerances. D's frame attention alone takes D's
 tolerances; blocks whose gates decline C and D are held to the step's
@@ -252,6 +256,28 @@ def test_cuda_layer_norm_matches_plain(m, c, dtype):
     _check(got, layernorm.layer_norm_plain(x, w, b, 1e-5), tol, rms_tol=rms_tol)
     with pytest.raises(RuntimeError, match="fused_ln"):
         layernorm.layer_norm(x, w.requires_grad_(True), b, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 40, 320, 328, 640, 1280, 2040, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", ["1", "7", "wave+1"])
+def test_cuda_layer_norm_plan_widths(c, dtype, rows):
+    """Kernel 8 at every width of its plan's sweep (even and ragged lane
+    groups, one to sixteen vectors a lane) and at 1, 7 and one more row
+    than the persistent grid takes in one pass of its warps."""
+    _need_cuda()
+    vecs = layernorm.layout(c, dtype.itemsize)[1]
+    p = layernorm.plan(1 << 30, c, dtype, *layernorm.occupancy(torch.device("cuda", 0), dtype, vecs))
+    m = {"1": 1, "7": 7, "wave+1": p.grid * layernorm.THREADS // 32 * p.rows + 1}[rows]
+    g = torch.Generator(device="cuda").manual_seed(m + c)
+    x = (torch.randn(m, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    w = torch.randn(c, generator=g, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=g, device="cuda") * 0.1
+    got = layernorm.layer_norm_kernel(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    tol, rms_tol = (1e-2, 2e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    _check(got, layernorm.layer_norm_plain(x, w, b, 1e-5), tol, rms_tol=rms_tol)
 
 
 def _forward_operands(g, layout, b, sq, skv, n, d):
@@ -596,3 +622,134 @@ def test_cuda_temp_hint_encoder_matches_plain():
         stack = cn._conv_stack(params["stack"], cond.reshape(6, 64, 64, 3), torch.bfloat16)
     assert got.shape == (6, 8, 8, 64) and torch.isfinite(got).all()
     _check(got, want, 3e-2, stack, 1e-2)
+
+
+def _tiny_request(seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return rng.rand(1, 64, 64, 3).astype(np.float32), rng.rand(1, 2, 64, 64, 3).astype(np.float32)
+
+
+def _eager_denoise(*args, graph=None, **kw):
+    from posetraj_torch.pipeline import svd_controlnet
+
+    return svd_controlnet.denoise_eager(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switches", ["default", "un-fused"])
+def test_cuda_generate_graph_matches_eager(switches):
+    """ModelBundle.tiny() through generate() on the card, its denoise loop
+    from the captured graph against the eager loop on the same inputs:
+    equal bit for bit where two eager runs are (else no further apart than
+    they are), with the same launches of every kernel."""
+    _need_cuda()
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    from posetraj_torch.configs import KernelConfig, PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline import ModelBundle, generate, init_params
+    from posetraj_torch.pipeline import svd_controlnet
+
+    kernels = KernelConfig() if switches == "default" else KernelConfig(
+        qkvt_attn=False, temporal_attn=False, fused_ff_ln=False, fused_ln=True)
+    bundle = dataclasses.replace(ModelBundle.tiny(), kernels=kernels)
+    params = init_params(bundle, seed=5)
+    image, control = _tiny_request(2)
+    pcfg = PipelineConfig(height=64, width=64, num_frames=2, num_inference_steps=3, decode_chunk_size=2)
+    sched = make_schedule(bundle.scheduler, 3)
+    noises = {"latents": torch.randn(1, 2, 8, 8, 4, device="cuda"),
+              "image_aug": torch.randn(1, 64, 64, 3, device="cuda")}
+    run = lambda: generate(params, bundle, pcfg, image, control, noises, [[6.0, 128.0, 0.02]], sched.sigmas,
+                           sched.timesteps, 2, output_latent=True)
+    outs, launches = [], []
+    for eager in (True, True, False):
+        _native.reset_launches()
+        with mock.patch.object(svd_controlnet, "denoise", _eager_denoise) if eager else contextlib.nullcontext():
+            outs.append(run())
+        torch.cuda.synchronize()
+        launches.append(dict(_native.LAUNCHES))
+    spread = float((outs[0] - outs[1]).abs().max())
+    assert float((outs[2] - outs[0]).abs().max()) <= spread
+    assert launches[2] == launches[0] and launches[0]["groupnorm"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_reuses_its_graph():
+    """A second request through one SVDControlNetPipeline replays the graph
+    the first captured, with the same launches; another hint encoder in the
+    parameters captures anew. Each request's latents equal the eager loop's
+    on its inputs (or differ no more than two eager runs do)."""
+    _need_cuda()
+    from unittest import mock
+
+    import numpy as np
+
+    from posetraj_torch.core.init import make_init
+    from posetraj_torch.models import controlnet as cn
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline, init_params
+    from posetraj_torch.pipeline import svd_controlnet
+
+    bundle = ModelBundle.tiny()
+    params = init_params(bundle, seed=6)
+    pipe = SVDControlNetPipeline(params, bundle)
+
+    def request(seed):
+        image, control = _tiny_request(seed)
+        call = lambda: pipe(image, control, height=64, width=64, num_frames=2, num_inference_steps=3, seed=seed,
+                            output_type="latent")
+        _native.reset_launches()
+        got = call()
+        launched = dict(_native.LAUNCHES)
+        with mock.patch.object(svd_controlnet, "denoise", _eager_denoise):
+            want, again = call(), call()
+        assert np.abs(got - want).max() <= np.abs(again - want).max()
+        return launched
+
+    first = request(1)
+    graph = pipe.graph._graph
+    assert graph is not None
+    second = request(2)
+    assert pipe.graph._graph is graph and second == first
+    hint = cn.init_hint_encoder(make_init(9, torch.device("cuda"), torch.bfloat16), bundle.controlnet.hint)
+    pipe.params = dict(params, controlnet=dict(params["controlnet"], controlnet_cond_embedding=hint))
+    request(3)
+    assert pipe.graph._graph is not None and pipe.graph._graph is not graph
+
+
+@pytest.mark.cuda
+def test_cuda_generate_keeps_its_graph_for_the_next_call():
+    """generate() called directly, twice with one key, replays the graph the
+    first call captured (the module's, kept as jit keeps a compiled
+    program), with the same launches and latents; other parameters capture
+    anew. The graph holds kernel A's workspace as it captured it."""
+    _need_cuda()
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline import ModelBundle, generate, init_params
+    from posetraj_torch.pipeline import svd_controlnet
+
+    bundle = ModelBundle.tiny()
+    image, control = _tiny_request(4)
+    pcfg = PipelineConfig(height=64, width=64, num_frames=2, num_inference_steps=3, decode_chunk_size=2)
+    sched = make_schedule(bundle.scheduler, 3)
+    noises = {"latents": torch.randn(1, 2, 8, 8, 4, device="cuda"),
+              "image_aug": torch.randn(1, 64, 64, 3, device="cuda")}
+
+    def run(params):
+        _native.reset_launches()
+        out = generate(params, bundle, pcfg, image, control, noises, [[6.0, 128.0, 0.02]], sched.sigmas,
+                       sched.timesteps, 2, output_latent=True)
+        torch.cuda.synchronize()
+        return out, dict(_native.LAUNCHES), svd_controlnet._SHARED_GRAPH._graph
+
+    params = init_params(bundle, seed=7)
+    first, launched, graph = run(params)
+    second, again, same = run(params)
+    assert graph is not None and same is graph and again == launched and torch.equal(first, second)
+    assert all(any(t is w for w in svd_controlnet._SHARED_GRAPH._held) for t in groupnorm.workspaces())
+    _, _, other = run(init_params(bundle, seed=8))
+    assert other is not None and other is not graph

@@ -160,6 +160,99 @@ def test_cam_generate_matches_jax(slice_inputs):
     assert float(np.abs(run(None) - got).max()) > 3e-2 * scale
 
 
+@pytest.mark.parametrize("reload", [False, True])
+def test_graph_step_matches_denoise(slice_inputs, reload):
+    """DenoiseGraph's captured step (graph_step), run eagerly on the CPU on
+    the graph's static buffers over a 2-step ladder, equals the eager loop
+    bit for bit: the buffers, the device step index and its reads of
+    sigmas[i], sigmas[i + 1] and timesteps[i]. With reload, the buffers are
+    first loaded with other latents and then refilled, as a later request
+    refills them."""
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline import ModelBundle
+    from posetraj_torch.pipeline import svd_controlnet as pipe
+
+    _, params, d = slice_inputs
+    bundle = ModelBundle.tiny()
+    pcfg = PipelineConfig(height=H, width=W, num_frames=F, num_inference_steps=STEPS, decode_chunk_size=F)
+    sched = make_schedule(bundle.scheduler, STEPS)
+    tparams = {name: params_from_jax(p) for name, p in params.items()}
+    rng = np.random.RandomState(43)
+    t = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    latents = t(1, F, H // 8, W // 8, 4) * float(sched.sigmas[0])
+    image_latents, clip, ids = t(2, H // 8, W // 8, 4), t(2, 1, bundle.clip.projection_dim), t(2, 3)
+    control = torch.from_numpy(d["control"] * 2 - 1).repeat(2, 1, 1, 1, 1)
+    sigmas, timesteps = torch.from_numpy(sched.sigmas), torch.from_numpy(sched.timesteps)
+    guidance = torch.linspace(1.0, 3.0, F)
+    dt = torch.float32
+    with torch.inference_mode():
+        want = pipe.denoise(tparams, bundle, pcfg, latents, image_latents, clip, control, ids, sigmas, timesteps,
+                            guidance, dt)
+        graph = pipe.DenoiseGraph()
+        hint = pipe._hint(tparams, bundle, control, F, dt, None, None, None)
+        img_lat, gs = pipe._image_latents(image_latents, latents, dt), pipe._guidance(guidance)
+        for lat in ([latents + 1.0] if reload else []) + [latents]:
+            ready = graph.load(tparams, bundle, pcfg, dt, latents=lat, image_latents=img_lat, clip=clip,
+                               time_ids=ids, hint=hint, guidance=gs, sigmas=sigmas, timesteps=timesteps)
+        assert not ready  # nothing was captured on the CPU
+        for _ in range(STEPS):
+            pipe.graph_step(tparams, bundle, pcfg, graph.buffers, dt)
+    assert int(graph.buffers["step"]) == STEPS
+    assert torch.equal(graph.buffers["latents"], want)
+
+
+def test_graph_key_holds_the_parameters_weakly():
+    """DenoiseGraph's key: the same parameter tensors refill the static
+    buffers (a captured graph would serve); equal copies at other addresses
+    make them anew (a graph would capture anew); and the key holds the
+    tensors only weakly, so a dropped parameter tree is freed."""
+    import gc
+    import weakref
+
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.core.params import leaves
+    from posetraj_torch.pipeline import ModelBundle, init_params
+    from posetraj_torch.pipeline import svd_controlnet as pipe
+
+    bundle = ModelBundle.tiny()
+    params = init_params(bundle, seed=3, device="cpu")
+    pcfg = PipelineConfig(height=H, width=W, num_frames=F, num_inference_steps=STEPS)
+    inputs = {"latents": torch.zeros(1, F, H // 8, W // 8, 4), "sigmas": torch.ones(STEPS + 1)}
+    graph = pipe.DenoiseGraph()
+    graph.load(params, bundle, pcfg, torch.float32, **inputs)
+    buffers = graph.buffers["latents"]
+    graph.load(params, bundle, pcfg, torch.float32, **inputs)
+    assert graph.buffers["latents"] is buffers
+    clone = lambda tree: ({k: clone(v) for k, v in tree.items()} if isinstance(tree, dict)
+                          else [clone(v) for v in tree] if isinstance(tree, list) else tree.clone())
+    copy = clone(params)
+    graph.load(copy, bundle, pcfg, torch.float32, **inputs)
+    assert graph.buffers["latents"] is not buffers
+    dropped = weakref.ref(next(leaves(copy["unet"])))
+    del copy
+    gc.collect()
+    assert dropped() is None
+
+
+def test_capture_launch_accounting():
+    """A capture launches nothing: what the wrappers counted during it comes
+    back out of LAUNCHES as the launches of one replay."""
+    from posetraj_torch.ops import _native
+
+    _native.reset_launches()
+    _native.LAUNCHES["mlp"] += 2
+    with _native.capturing_launches() as per_replay:
+        _native.LAUNCHES["mlp"] += 3
+        _native.LAUNCHES["groupnorm"] += 1
+    assert _native.LAUNCHES["mlp"] == 2 and _native.LAUNCHES["groupnorm"] == 0
+    assert per_replay["mlp"] == 3 and per_replay["groupnorm"] == 1 and per_replay["layernorm"] == 0
+    for _ in range(4):
+        _native.add_launches(per_replay)
+    assert _native.LAUNCHES["mlp"] == 14 and _native.LAUNCHES["groupnorm"] == 4
+    _native.reset_launches()
+
+
 def test_pipeline_call_runs_on_cpu_when_asked():
     from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline, init_params
 
