@@ -58,9 +58,27 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      against the same step with every wrapper plain, and with uniform
      attention to show the check sees kernels C and 5; (b) every ControlNet
      leaf has a finite, non-zero gradient; (c) Trainer.step x 4 (two
-     optimizer updates): accumulation, EMA, frozen UNet, launches of every
+     optimizer updates; the micro-step replays a captured CUDA graph after
+     the first call): accumulation, EMA, frozen UNet, launches of every
      kernel, s/micro-step, s/optimizer step, peak memory; (d) one more
-     micro-step under torch.profiler, grouped by kernel;
+     micro-step under torch.profiler, grouped by kernel; (e) the graphed
+     micro-step (Trainer.step) against the eager one (Trainer.step_eager),
+     4 micro-steps from one state and generator: params, EMA, moments and
+     accumulator bitwise equal where two eager runs are (else within their
+     spread), the same launches by the wrappers' counts and, in one
+     micro-step, by the profiler's; s/micro-step and s/optimizer-step as
+     medians of 8 optimizer steps taken in turns (eager, graph, graph,
+     eager), busy share, capture seconds, memory at rest and at an eager
+     peak, the graph's pool, the bytes of a full-width checkpoint; the
+     graphed step must not be slower; (f) bbox, cam, rot and temp under the
+     default switches, the base variant under UNFUSED (kernels 5, 7 and 8;
+     kernel 8 only where no gradient flows) and the four memory options
+     together: one micro-step's gradient with the kernels against the
+     all-plain step, the next micro-step replayed with the update, a
+     replayed micro-step against an eager one, launches, memory beside the
+     defaults'; (g) resume from a checkpoint at a reduced depth (UNet and
+     ControlNet 320, 640 wide, one layer a block): the restored run's two
+     micro-steps bitwise the uninterrupted run's;
   6. inference at 14x320x576 under the un-fused KernelConfig (UNFUSED:
      kernels 7 and 8, B without its LayerNorm, no C or D): (a) one denoise
      step against the all-plain step and the default-config step, with
@@ -772,13 +790,15 @@ def patched(*replacements):
 def plain_versions(ops):
     """Routes the model's kernel wrappers to their plain versions, autograd
     through plain PyTorch included (the reference of phases 3, 5 and 6): A-D,
-    kernels 6 and 7 and kernel 8. No other attention() call of the model
-    qualifies for kernel 5; the callers check that the plain runs launch
-    nothing."""
+    kernels 5 (the un-fused training path's attention() under grad), 6, 7
+    and 8. The callers check that the plain runs launch nothing."""
+    from posetraj_torch.ops.attention import dot_product_attention
+
     groupnorm, mlp, qkvt, temporal, flash, layernorm, _ = ops
     return patched((groupnorm, "group_norm", groupnorm.group_norm_plain), (mlp, "geglu_mlp", mlp.geglu_mlp_plain),
                    (qkvt, "attn_sublayer", qkvt.attn_sublayer_plain),
                    (temporal, "temporal_attn_sublayer", temporal.temporal_attn_sublayer_plain),
+                   (flash, "flash_attention", dot_product_attention),
                    (flash, "flash_attention_tq", flash.flash_attention_tq_plain),
                    (flash, "flash_attention_qkv", lambda qkv, n, scale: flash.flash_qkv_plain(qkv, n, scale)[0]),
                    (layernorm, "layer_norm", layernorm.layer_norm_plain))
@@ -868,6 +888,9 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
+PROFILE_PREROLL = 64
+
+
 def profile_step(torch, step):
     """One warm step under torch.profiler: wall time, summed device time of
     its kernels, and that time grouped by _kernel_group."""
@@ -876,13 +899,20 @@ def profile_step(torch, step):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # In a process that has profiled before, the profiler has missed the
+        # first device records of a window (a training micro-step's first
+        # kernel A, a dozen kernels in): spin kernels, left out of the
+        # groups, take those places.
+        for _ in range(PROFILE_PREROLL):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = collections.defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.name:
             gr = groups[_kernel_group(ev.name)]
             gr[0] += (ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total) / 1e3
             gr[1] += 1
@@ -1652,6 +1682,395 @@ def direct_generate_check(torch, bundle, params, steps, height, width, cfg, card
         fail(f"generate() ({label}) called directly: its graph disagrees with the eager loop or was not reused")
 
 
+# Phase 5(e)-(g): the micro-step's captured graph against the eager step,
+# the other training configurations, resume.
+GRAPH_TRAIN_STEPS = 4   # micro-steps from one state in each run of 5(e): two updates
+TRAIN_TIME_ROUNDS = 4   # rounds of (eager, graph, graph, eager) optimizer steps timing 5(e)
+# 5(f): each configuration's name, hint variant, KernelConfig switches and
+# TrainConfig options.
+TRAIN_CONFIGS = (
+    ("bbox", "bbox", {}, {}),
+    ("cam", "cam", {}, {}),
+    ("rot", "rot", {}, {}),
+    ("temp", "temp", {}, {}),
+    ("un-fused", "base", UNFUSED, {}),
+    ("memory options", "base", {}, dict(grads_bf16=True, adam_mu_bf16=True, grad_accum_dtype="bfloat16",
+                                         encode_outside_step=True)),
+)
+
+
+def _to_host(obj):
+    """A copy of a state dict with every tensor in host memory."""
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    if hasattr(obj, "to") and hasattr(obj, "is_cuda"):
+        # Detached: a copy that kept the masters' autograd nodes alive would
+        # tie them to this stream, and a later capture on another stream
+        # would have to wait on it (which capture refuses).
+        return obj.detach().to("cpu", copy=True)
+    return obj
+
+
+def train_state_groups(trainer):
+    """The trainer's tensors that a step updates, by group: params
+    (float32 masters), EMA, Adam's moments, the gradient accumulator."""
+    st = trainer.state
+    masters = _tree_leaves(st.controlnet_params)
+    moments = [st.optimizer.state[p][k] for p in masters if p in st.optimizer.state
+               for k in ("exp_avg", "exp_avg_sq")]
+    return {"params": masters, "EMA": _tree_leaves(st.ema_params), "moments": moments, "accumulator": st.grad_acc}
+
+
+def state_diff(torch, host, live):
+    """Max |a - b| of each group between a host copy (train_state_groups
+    through _to_host) and the live tensors, leaf by leaf on the card."""
+    out = {}
+    with torch.no_grad():
+        for name, hs in host.items():
+            ls = live[name]
+            if len(hs) != len(ls):
+                out[name] = float("inf")
+                continue
+            out[name] = max((float((h.to(d.device) - d).abs().max()) for h, d in zip(hs, ls) if d.numel()),
+                            default=0.0)
+    return out
+
+
+def state_bytes(trainer) -> int:
+    """Bytes of the tensors a checkpoint holds (Trainer.state_dict)."""
+    return sum(t.numel() * t.element_size() for ts in train_state_groups(trainer).values() for t in ts)
+
+
+def memory_numbers(torch, trainer, batch):
+    """(GiB allocated at rest, GiB at the peak of one eager micro-step that
+    ends an accumulation window, the update included). The trainer must be
+    one micro-step short of a window's end; the step is taken."""
+    if trainer.state.step % trainer.tcfg.gradient_accumulation_steps != trainer.tcfg.gradient_accumulation_steps - 1:
+        fail("memory_numbers: the trainer is not one micro-step short of an update")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    trainer.step_eager(batch)
+    torch.cuda.synchronize()
+    return rest, torch.cuda.max_memory_allocated() / 2**30
+
+
+def graph_train_check(torch, native, bundle, params, f, h, w, card):
+    """Phase 5(e): the micro-step replayed from its captured CUDA graph
+    (Trainer.step) against the same micro-step issued from the host
+    (Trainer.step_eager), at full width with the TrainConfig defaults.
+
+    GRAPH_TRAIN_STEPS micro-steps (two optimizer updates) from one state
+    and one generator state, four times: eager, eager again, graphed with a
+    first call that captures, graphed with replays only. Params, EMA,
+    moments and accumulator must be bitwise equal to the eager run's where
+    the two eager runs are (else differ no more than they do), with the
+    same launches by the wrappers' counts; the profiler's device launches
+    of each port kernel in a graphed micro-step must equal an eager one's
+    and, for the kernels of one launch a call, what the replay added to the
+    counts. s/micro-step and s/optimizer-step: medians over
+    TRAIN_TIME_ROUNDS rounds of eager, graph, graph, eager optimizer steps
+    (each after a garbage collection); the graphed step must not be slower.
+    Returns what it measured; fails on a miss."""
+    from posetraj_torch.configs import TrainConfig
+    from posetraj_torch.train import Trainer
+
+    sync = torch.cuda.synchronize
+    tcfg = TrainConfig(num_frames=f, height=h, width=w)
+    frozen = {k: params[k] for k in ("unet", "vae", "clip")}
+    trainer = Trainer(bundle, tcfg, frozen, params["controlnet"], device="cuda")
+    batch = training_batch(torch, f, h, w, 4321)
+    init = _to_host(trainer.state_dict())
+    out = {}
+
+    def run(step):
+        trainer.load_state_dict(init)
+        native.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        losses = [float(step(batch)["loss"]) for _ in range(GRAPH_TRAIN_STEPS)]
+        sync()
+        return losses, dict(native.LAUNCHES), time.perf_counter() - t0
+
+    runs = {}
+    runs["eager"] = run(trainer.step_eager)
+    ref = _to_host(train_state_groups(trainer))
+    diffs = {}
+    for name, step in (("eager again", trainer.step_eager), ("graph, first call", trainer.step),
+                       ("graph", trainer.step)):
+        runs[name] = run(step)
+        diffs[name] = state_diff(torch, ref, train_state_groups(trainer))
+        if name == "graph, first call":
+            out["capture_s"] = trainer.graph.capture_s
+    del ref
+    spread = max(diffs["eager again"].values())
+    worst = max(max(diffs[k].values()) for k in ("graph, first call", "graph"))
+    out["bitwise"] = worst == 0.0
+    out["agree"] = worst <= spread and all(runs[k][0] == runs["eager"][0] or spread > 0 for k in runs)
+    out["launches_equal"] = all(runs[k][1] == runs["eager"][1] for k in runs)
+    say(f"  (e) the micro-step as one captured CUDA graph vs issued from the host, {GRAPH_TRAIN_STEPS} micro-steps "
+        f"(two updates) from one state, 14x{h}x{w}, defaults: eager vs eager max diff "
+        f"{ {k: round(v, 9) for k, v in diffs['eager again'].items()} }; graph vs eager "
+        f"{ {k: round(v, 9) for k, v in diffs['graph, first call'].items()} } (first call) / "
+        f"{ {k: round(v, 9) for k, v in diffs['graph'].items()} } (replays only): "
+        f"{('bitwise equal' if out['bitwise'] else 'within the eager spread') if out['agree'] else 'FAIL'}; "
+        f"losses {runs['eager'][0]} / {runs['graph'][0]}")
+    say(f"    launches over {GRAPH_TRAIN_STEPS} micro-steps: eager {runs['eager'][1]}, graph {runs['graph'][1]} "
+        f"{'ok' if out['launches_equal'] else 'FAIL'}; capture + instantiate {out['capture_s']:.3f} s, the first "
+        f"graphed run {runs['graph, first call'][2]:.3f} s against {runs['graph'][2]:.3f} replaying")
+
+    # s/micro-step and s/optimizer-step in turns; the state moves on.
+    samples = {"eager": ([], []), "graph": ([], [])}
+    steps = {"eager": trainer.step_eager, "graph": trainer.step}
+    for _ in range(TRAIN_TIME_ROUNDS):
+        for name in ("eager", "graph", "graph", "eager"):
+            gc.collect()
+            sync()
+            t0 = time.perf_counter()
+            steps[name](batch)
+            sync()
+            t1 = time.perf_counter()
+            steps[name](batch)
+            sync()
+            samples[name][0].append(t1 - t0)
+            samples[name][1].append(time.perf_counter() - t0)
+    out["state_gb"] = state_bytes(trainer) / 1e9  # the moments exist now
+    med = {k: (statistics.median(v[0]), statistics.median(v[1])) for k, v in samples.items()}
+    out["micro_s"] = {k: v[0] for k, v in med.items()}
+    out["opt_s"] = {k: v[1] for k, v in med.items()}
+
+    # Micro-steps under the profiler, each at the start of a window (no
+    # update in it), then the window's end, also profiled: its launches
+    # beyond a replay's are the eager update's (clip, AdamW, EMA, the
+    # accumulator's mean and zeroing). Two windows of each: the profiler
+    # can drop a record of a window of ~22,000 launches (one kernel A of an
+    # eager micro-step in one run) but never adds one, so each group's
+    # device launches are the larger count of the two.
+    def window(step):
+        native.reset_launches()
+        start = profile_step(torch, lambda: step(batch))
+        added = dict(native.LAUNCHES)
+        return start, added, profile_step(torch, lambda: step(batch))
+
+    profs = {name: [window(step) for _ in range(2)] for name, step in (("eager", trainer.step_eager),
+                                                                      ("graph", trainer.step))}
+    eager_prof, graph_prof = profs["eager"][0][0], profs["graph"][0][0]
+    added = profs["graph"][0][1]
+    count = lambda prof: sum(v[1] for v in prof[1].values())  # noqa: E731
+    out["update_launches"] = count(profs["graph"][0][2]) - count(graph_prof)
+    out["update_ms"] = profs["graph"][0][2][0] - graph_prof[0]
+    groups = sorted(set(ONE_LAUNCH_GROUPS) | {k for w in profs.values() for p in w for k in p[0][1] if "(port" in k})
+    device_n = {name: {k: max(p[0][1].get(k, (0.0, 0))[1] for p in w) for k in groups} for name, w in profs.items()}
+    one_call = {k: sum(added[c] for c in counters) for k, counters in ONE_LAUNCH_GROUPS.items()}
+    out["device_ok"] = (device_n["graph"] == device_n["eager"] and device_n["graph"]["A groupnorm (port)"] > 0
+                        and all(device_n["graph"][k] == n for k, n in one_call.items()))
+    device = {k: sum(v[0] for v in prof[1].values()) for k, prof in (("eager", eager_prof), ("graph", graph_prof))}
+    out["busy"] = {k: device[k] / (out["micro_s"][k] * 1e3) for k in device}
+    out["profiles"] = {"eager": eager_prof, "graph": graph_prof}
+    trainer.step(batch)
+    out["mem"] = memory_numbers(torch, trainer, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["graph_pool_gib"] = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 2**30
+    short = lambda d: {k.split(" (")[0]: n for k, n in d.items() if n}
+    say(f"    device launches of the port's kernels in one micro-step under torch.profiler: eager "
+        f"{short(device_n['eager'])}, graph {short(device_n['graph'])}; added to the counts by the replay for the "
+        f"kernels of one launch a call {short(one_call)} {'ok' if out['device_ok'] else 'FAIL'}")
+    span = lambda k, i: f"{min(samples[k][i]):.4f}-{max(samples[k][i]):.4f}"
+    say(f"    s/micro-step, median of {len(samples['eager'][0])} each in turns: eager {out['micro_s']['eager']:.4f} "
+        f"({span('eager', 0)}), graphed {out['micro_s']['graph']:.4f} ({span('graph', 0)}) "
+        f"({out['micro_s']['eager'] / out['micro_s']['graph']:.3f}x); s/optimizer-step eager "
+        f"{out['opt_s']['eager']:.4f} ({span('eager', 1)}), graphed {out['opt_s']['graph']:.4f} "
+        f"({span('graph', 1)}) on {card}")
+    for name, prof in (("eager", eager_prof), ("graph", graph_prof)):
+        wall_ms = out["micro_s"][name] * 1e3
+        say(f"    {name} micro-step under torch.profiler: device {device[name]:.1f} ms, wall {prof[0]:.1f} ms "
+            f"profiled, {wall_ms:.1f} ms unprofiled: busy share {device[name] / wall_ms:.3f}")
+    say(f"    the update at a window's end, eager foreach ops: {out['update_launches']} device launches beyond a "
+        f"replay's, {out['update_ms']:.1f} ms of wall beyond it under the profiler")
+    say(f"    memory: {out['mem'][0]:.2f} GiB allocated at rest, {out['mem'][1]:.2f} GiB at the peak of an eager "
+        f"micro-step; the graph's private pool {out['graph_pool_gib']:.2f} GiB; a checkpoint's tensors "
+        f"{out['state_gb']:.2f} GB")
+    print_profile(f"profile of one graphed micro-step on {card}", graph_prof)
+    ok = (out["agree"] and out["launches_equal"] and out["device_ok"]
+          and out["micro_s"]["graph"] <= out["micro_s"]["eager"])
+    if not ok:
+        fail("the graphed micro-step disagrees with the eager one, launched other kernels, or is slower")
+    del trainer, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_configs_check(torch, ops, native, params, f, h, w, grad_tol, default_mem, card):
+    """Phase 5(f): each of TRAIN_CONFIGS at full width, on phase 3's
+    parameters (the variant's hint encoder swapped in, variant_hint_params):
+    one micro-step's accumulated gradient with the kernels (Trainer.step's
+    first call: eager on the capture stream, then the capture) against the
+    all-plain eager step from the same state within phase 5(a)'s
+    tolerance; the second
+    micro-step replayed, with the update; a third micro-step from one state
+    replayed and issued from the host, which must agree; memory at rest and
+    at the peak of an eager micro-step that ends a window, beside the
+    defaults' (`default_mem`, 5(e)'s). Returns {name: launches of the
+    first micro-step}; fails on a miss."""
+    import dataclasses
+
+    from posetraj_torch.configs import KernelConfig, TrainConfig
+    from posetraj_torch.pipeline import ModelBundle
+    from posetraj_torch.train import Trainer
+
+    sync = torch.cuda.synchronize
+    g = torch.Generator(device="cuda")
+    g.manual_seed(515)
+    extra = {"bbox_trajectories": torch.rand(1, f, h, w, 3, generator=g, device="cuda") * 2 - 1,
+             "cam_parameter": torch.randn(1, f, 12, generator=g, device="cuda"),
+             "rot_id": torch.tensor([1], device="cuda")}
+    needs = {"bbox": "bbox_trajectories", "cam": "cam_parameter", "rot": "rot_id"}
+    frozen = {k: params[k] for k in ("unet", "vae", "clip")}
+    launches = {}
+    for name, variant, switches, options in TRAIN_CONFIGS:
+        t_start = time.perf_counter()
+        bundle = dataclasses.replace(ModelBundle.with_variant(variant), kernels=KernelConfig(**switches))
+        cp = dict(params["controlnet"])
+        if variant != "base":
+            cp["controlnet_cond_embedding"] = variant_hint_params(torch, variant, 61)[1]
+        trainer = Trainer(bundle, TrainConfig(num_frames=f, height=h, width=w, **options), frozen, cp, device="cuda")
+        del cp
+        batch = training_batch(torch, f, h, w, 4321)
+        if variant in needs:
+            batch[needs[variant]] = extra[needs[variant]]
+        st = trainer.state
+
+        def rewind(gen_state, step):
+            with torch.no_grad():
+                torch._foreach_zero_(st.grad_acc)
+            st.step = step
+            trainer.generator.set_state(gen_state)
+
+        # The kernels' micro-step first (the graph's first call: eager on the
+        # capture stream, then the capture), so that the graph's pool is
+        # taken before the plain step's large attention buffers are cached.
+        g0 = trainer.generator.get_state()
+        native.reset_launches()
+        loss_k = float(trainer.step(batch)["loss"])
+        sync()
+        launches[name] = first = dict(native.LAUNCHES)
+        acc_k = [a.clone() for a in st.grad_acc]
+        g1 = trainer.generator.get_state()
+        rewind(g0, 0)
+        native.reset_launches()
+        with plain_versions(ops):
+            loss_p = float(trainer.step_eager(batch)["loss"])
+        plain_launches = sum(native.LAUNCHES.values())
+        rel = _rel_rms(acc_k, st.grad_acc)
+        rewind(g1, 1)
+        with torch.no_grad():
+            torch._foreach_copy_(st.grad_acc, acc_k)
+        del acc_k
+        gc.collect()
+        torch.cuda.empty_cache()
+        native.reset_launches()
+        trainer.step(batch)  # replayed; the update
+        sync()
+        replayed = dict(native.LAUNCHES)
+        adam = [v for s in st.optimizer.state.values() for k, v in s.items() if k == "step"]
+        updated = len(adam) == len(_tree_leaves(st.controlnet_params)) and bool(
+            all(torch.isfinite(p).all() for p in _tree_leaves(st.controlnet_params)))
+        g1 = trainer.generator.get_state()
+        trainer.step_eager(batch)
+        acc_e = [a.clone() for a in st.grad_acc]
+        rewind(g1, 2)
+        trainer.step(batch)
+        sync()
+        graph_vs_eager = _rel_rms(st.grad_acc, acc_e)
+        bitwise = all(torch.equal(a, b) for a, b in zip(st.grad_acc, acc_e))
+        del acc_e
+        rest, peak = memory_numbers(torch, trainer, batch)
+        ok = (np.isfinite(loss_k) and rel <= grad_tol and plain_launches == 0 and replayed == first and updated
+              and graph_vs_eager <= 1e-3 and first["groupnorm"] > 0)
+        if name == "un-fused":
+            ok = ok and all(first[k] > 0 for k in ("flash_fwd", "flash_bwd", "flash_tq", "layernorm")) and not any(
+                first[k] for k in ("qkvt", "temporal", "frame_attn"))
+        elif name == "temp":
+            ok = ok and first["mlp"] > launches["bbox"]["mlp"]
+        short = {k: n for k, n in first.items() if n}
+        say(f"  (f) {name}: loss {loss_k:.6g} (plain {loss_p:.6g}), gradient vs all-plain rel_rms={rel:.4g} "
+            f"(tol {grad_tol:g}); replayed micro-step vs eager rel_rms={graph_vs_eager:.3g} "
+            f"({'bitwise' if bitwise else 'not bitwise'}); launches a micro-step {short} (replay: "
+            f"{'same' if replayed == first else replayed}); update applied {updated}; memory {rest:.2f} GiB at "
+            f"rest, {peak:.2f} GiB eager peak (defaults {default_mem[0]:.2f} / {default_mem[1]:.2f}, 5(e)); "
+            f"{time.perf_counter() - t_start:.1f} s {'ok' if ok else 'FAIL'}")
+        del trainer, st, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"training under {name} disagrees with the plain step, its replay with the eager step, or "
+                 "launched other kernels than expected")
+    return launches
+
+
+def resume_check(torch, params, f, h, w, card):
+    """Phase 5(g): resume from a checkpoint at a reduced depth (UNet and
+    ControlNet of two levels, 320 and 640 wide, one layer a block; VAE and
+    CLIP at full width): a run of five graphed micro-steps, saved after the
+    third, against a new Trainer restored from that checkpoint for the last
+    two, bitwise. Returns (checkpoint GB on disk, save s, restore s)."""
+    import dataclasses
+    import tempfile
+
+    from posetraj_torch.configs import ControlNetConfig, TrainConfig
+    from posetraj_torch.pipeline import ModelBundle, init_params
+    from posetraj_torch.train import Trainer, restore_checkpoint, save_checkpoint
+    from posetraj_torch.train.checkpoints import STATE_FILE
+
+    full = ModelBundle()
+    u = dataclasses.replace(full.unet, block_out_channels=(320, 640), cross_attention_levels=(True, True),
+                            num_attention_heads=(5, 10), layers_per_block=1)
+    bundle = dataclasses.replace(full, unet=u, controlnet=ControlNetConfig(unet=u))
+    small = init_params(bundle, seed=9, device="cuda")
+    frozen = {"unet": small["unet"], "vae": params["vae"], "clip": params["clip"]}
+    tcfg = TrainConfig(num_frames=f, height=h, width=w, lr_warmup_steps=1)
+    make = lambda: Trainer(bundle, tcfg, frozen, small["controlnet"], device="cuda")
+    batch = training_batch(torch, f, h, w, 777)
+    run = make()
+    with tempfile.TemporaryDirectory() as root:
+        for _ in range(3):
+            run.step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(root, run.state.step, run, keep_total_limit=1)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(path, STATE_FILE)) / 1e9
+        want = [float(run.step(batch)["loss"]) for _ in range(2)]
+        resumed = make()
+        with torch.no_grad():
+            for ts in train_state_groups(resumed).values():
+                for t in ts:
+                    t.add_(1.0)  # whatever it held, the checkpoint's values replace it
+        t0 = time.perf_counter()
+        restore_checkpoint(path, resumed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = [float(resumed.step(batch)["loss"]) for _ in range(2)]
+    a, b = train_state_groups(run), train_state_groups(resumed)
+    equal = all(len(a[k]) == len(b[k]) and all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+    ok = equal and got == want and run.state.step == resumed.state.step == 5
+    say(f"  (g) resume at 14x{h}x{w}, UNet/ControlNet (320, 640) one layer a block: checkpoint after micro-step 3 "
+        f"{size:.3f} GB on disk, saved in {save_s:.2f} s, restored in {restore_s:.2f} s; micro-steps 4-5 losses "
+        f"{got} resumed vs {want} uninterrupted; params, EMA, moments, accumulator bitwise equal {equal} on {card} "
+        f"{'ok' if ok else 'FAIL'}")
+    del run, resumed, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("a run resumed from its checkpoint differs from the uninterrupted run")
+    return size, save_s, restore_s
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6 and 8")
@@ -1833,6 +2252,12 @@ def main() -> None:
         fail("the train steps broke accumulation, EMA, the frozen UNet, or missed a kernel")
     print_profile(f"(d) profile of one micro-step on {card}", tr["profile"])
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ge = graph_train_check(torch, _native, bundle, params, f, h, w, card)
+    train_configs_check(torch, ops, _native, params, f, h, w, grad_tol, ge["mem"], card)
+    resume_check(torch, params, f, h, w, card)
+    say(f"  phase 5(e)-(g) took {time.perf_counter() - t0:.1f} s; a full-width checkpoint holds "
+        f"{ge['state_gb']:.2f} GB of tensors")
 
     # Phase 6: inference at 14x320x576 under the un-fused KernelConfig.
     un = un_fused_check(torch, ops, _native, bundle, params, args.steps, card)

@@ -284,9 +284,11 @@ class TrainConfig:
     dropout 0.1, EMA, the auxiliary single-frame spatial loss x0.5, gradient
     checkpointing per (resnet, transformer) unit, 14 frames at 320x576.
 
-    Not in the port yet: `grads_bf16`, `adam_mu_bf16`, `grad_accum_dtype`
-    (memory options) and `encode_outside_step`. Setting any of them raises
-    NotImplementedError in the trainer.
+    The memory options `grads_bf16`, `adam_mu_bf16`, `grad_accum_dtype` and
+    `encode_outside_step` are the JAX package's (train/trainer.py says what
+    each does). `cam_mask_ratio` and `cam_norm` act in the dataset, not in
+    the step. Only the "constant" lr_scheduler exists, as in the JAX
+    package.
     """
 
     learning_rate: float = 1e-5

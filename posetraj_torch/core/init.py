@@ -10,6 +10,7 @@ leaf is cast to the compute dtype once, here.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -27,6 +28,17 @@ def resolve_device(device=None) -> torch.device:
             )
         device = "cuda"
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small tensor of fixed values on `device`, made once and kept for
+    the process (a handful of keys: CLIP's mean and std, the blur taps of a
+    resize, the training time ids). A CUDA graph capture may not copy from
+    the host, so code that a captured step runs takes its constants from
+    here; the eager step before a capture makes them. Callers must not
+    write into the tensor."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def default_compute_dtype(device: torch.device) -> torch.dtype:

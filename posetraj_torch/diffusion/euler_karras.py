@@ -1,14 +1,16 @@
 """Euler-Discrete scheduler with the Karras sigma "fix", as pure functions.
 
 The port's own copy of posetraj_tpu/diffusion/euler_karras.py: the sigma
-ladder is built host-side in numpy (`make_schedule`); `euler_step` is a pure
-function of (model_output, sample, sigma, sigma_next) over tensors, run in
-float32 whatever the model's compute dtype.
+ladder and the training sigma table are built host-side in numpy
+(`make_schedule`, `training_sigmas_grid`); `euler_step` is a pure function
+of (model_output, sample, sigma, sigma_next) over tensors, run in float32
+whatever the model's compute dtype, and `add_noise` is x + sigma * n.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -107,6 +109,12 @@ def make_schedule(cfg: SchedulerConfig, num_inference_steps: int) -> Schedule:
     )
 
 
+def training_sigmas_grid(cfg: SchedulerConfig) -> np.ndarray:
+    """The full training sigma table (num_train_timesteps entries, float32),
+    for add_noise by timestep."""
+    return _train_sigmas(cfg).astype(np.float32)
+
+
 def sigma_to_timestep(sigma: torch.Tensor) -> torch.Tensor:
     """Continuous v-prediction conditioning timestep: 0.25 * log(sigma)."""
     return 0.25 * torch.log(sigma)
@@ -119,22 +127,37 @@ def scale_model_input(sample: torch.Tensor, sigma) -> torch.Tensor:
 
 
 def euler_step(model_output: torch.Tensor, sample: torch.Tensor, sigma, sigma_next,
-               prediction_type: str = "v_prediction"):
-    """One Euler ODE step in float32 (gamma = 0, as the reference always
-    runs); returns (prev_sample, pred_original_sample)."""
+               prediction_type: str = "v_prediction", gamma: float = 0.0, noise: Optional[torch.Tensor] = None,
+               s_noise: float = 1.0):
+    """One Euler ODE step in float32; returns (prev_sample,
+    pred_original_sample). gamma > 0 is the churn branch: the sample is
+    first noised from sigma up to sigma_hat = sigma * (gamma + 1) with
+    `noise` times s_noise (the reference always runs gamma = 0)."""
     out_dtype = model_output.dtype
     sample = sample.float()
     model_output = model_output.float()
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=sample.device)
     sigma_next = torch.as_tensor(sigma_next, dtype=torch.float32, device=sample.device)
+    sigma_hat = sigma * (gamma + 1.0) if gamma else sigma
+    if gamma > 0:
+        if noise is None:
+            raise ValueError("gamma-churn requires noise")
+        sample = sample + noise.float() * s_noise * torch.sqrt(sigma_hat**2 - sigma**2)
     if prediction_type in ("original_sample", "sample"):
         pred_original = model_output
     elif prediction_type == "epsilon":
-        pred_original = sample - sigma * model_output
+        pred_original = sample - sigma_hat * model_output
     elif prediction_type == "v_prediction":
         pred_original = model_output * (-sigma / torch.sqrt(sigma**2 + 1.0)) + sample / (sigma**2 + 1.0)
     else:
         raise ValueError(prediction_type)
-    derivative = (sample - pred_original) / sigma
-    prev_sample = sample + derivative * (sigma_next - sigma)
+    derivative = (sample - pred_original) / sigma_hat
+    prev_sample = sample + derivative * (sigma_next - sigma_hat)
     return prev_sample.to(out_dtype), pred_original
+
+
+def add_noise(original: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """x_sigma = x + sigma * n; `sigma` of shape (batch,) broadcasts over
+    the trailing dims."""
+    sigma = torch.as_tensor(sigma, dtype=original.dtype, device=original.device)
+    return original + noise * sigma.reshape(sigma.shape + (1,) * (original.ndim - sigma.ndim))

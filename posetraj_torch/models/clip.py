@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from posetraj_torch.configs import CLIPVisionConfig
-from posetraj_torch.core.init import Init
+from posetraj_torch.core.init import Init, device_constant
 from posetraj_torch.ops.attention import attention
 from posetraj_torch.ops.primitives import gelu, layer_norm, linear
 
@@ -68,6 +68,6 @@ def clip_image_embeds(params: dict, cfg: CLIPVisionConfig, pixel_values: torch.T
 
 def clip_preprocess(images: torch.Tensor, cfg: CLIPVisionConfig) -> torch.Tensor:
     """Normalise [0, 1] RGB (B, H, W, 3) with the CLIP mean/std."""
-    mean = torch.tensor(cfg.image_mean, dtype=images.dtype, device=images.device)
-    std = torch.tensor(cfg.image_std, dtype=images.dtype, device=images.device)
+    mean = device_constant(tuple(cfg.image_mean), images.dtype, images.device)
+    std = device_constant(tuple(cfg.image_std), images.dtype, images.device)
     return (images - mean) / std

@@ -7,7 +7,8 @@ wrapper refuses an input that requires grad while grad mode is on.
 
 `fused_layer_norm_applicable` is the dispatch gate of ops/primitives.layer_norm
 (the JAX package's fused_layer_norm_applicable): KernelConfig.fused_ln, a
-CUDA tensor, C % 8 == 0, C <= 2048 and at least 4096 rows.
+CUDA tensor, C % 8 == 0, C <= 2048 and at least 4096 rows, and no gradient
+asked for.
 
 `plan` is the kernel's launch plan, pure Python so that the CPU tests hold
 it: how many lanes share a row, how many 16-byte vectors each lane holds
@@ -104,7 +105,16 @@ def layer_norm_plain(x, weight, bias, eps: float = 1e-5) -> torch.Tensor:
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
-def fused_layer_norm_applicable(x: torch.Tensor) -> bool:
+def fused_layer_norm_applicable(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """The gate of ops/primitives.layer_norm. It declines while grad mode is
+    on and x or one of `params` (weight, bias) requires grad: kernel 8 has
+    no backward, in the JAX package as here, so a LayerNorm that a gradient
+    flows through runs as F.layer_norm. Under a training step with
+    KernelConfig.fused_ln that is every LayerNorm of the ControlNet and of
+    the UNet's up path; the UNet's down path and mid block, which take no
+    input that needs a gradient, still launch kernel 8."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        return False
     c = x.shape[-1]
     return (kernel_config().fused_ln and x.is_cuda and c % 8 == 0 and c <= MAX_C
             and math.prod(x.shape[:-1]) >= MIN_ROWS)

@@ -97,8 +97,9 @@ def conv3d_temporal(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim, statistics in float32, result in x's
-    dtype. Kernel 8 under KernelConfig.fused_ln where its gate admits x."""
-    if ln_kernel.fused_layer_norm_applicable(x):
+    dtype. Kernel 8 under KernelConfig.fused_ln where its gate admits x
+    (never under grad: kernel 8 has no backward)."""
+    if ln_kernel.fused_layer_norm_applicable(x, params["weight"], params["bias"]):
         return ln_kernel.layer_norm(x, params["weight"], params["bias"], eps)
     y = F.layer_norm(x.float(), x.shape[-1:], params["weight"].float(), params["bias"].float(), eps)
     return y.to(x.dtype)

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from posetraj_torch.core.init import device_constant
+
 
 def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(ksize, dtype=np.float64) - ksize // 2
@@ -29,8 +31,8 @@ def gaussian_blur2d(x: torch.Tensor, ksize: Tuple[int, int], sigma: Tuple[float,
     ky, kx = ksize
     c = x.shape[-1]
     xc = x.permute(0, 3, 1, 2)
-    kern_x = torch.from_numpy(_gaussian_kernel1d(kx, sigma[1])).to(x)
-    kern_y = torch.from_numpy(_gaussian_kernel1d(ky, sigma[0])).to(x)
+    kern_x = device_constant(tuple(_gaussian_kernel1d(kx, sigma[1]).tolist()), x.dtype, x.device)
+    kern_y = device_constant(tuple(_gaussian_kernel1d(ky, sigma[0]).tolist()), x.dtype, x.device)
     front = (kx - 1) // 2
     h = F.pad(xc, (front, kx - 1 - front, 0, 0), mode="reflect")
     h = F.conv2d(h, kern_x.reshape(1, 1, 1, kx).expand(c, 1, 1, kx), groups=c)

@@ -13,6 +13,9 @@ Training math (the reference's train_svd_traj_blender_14.py:1204-1384):
   * CLIP embedding of frame 0 with the TRAIN-path normalisation quirk
   * added_time_ids in the TRAIN order [fps, noise_aug, motion]
   * conditioning dropout: p < 2g zeroes CLIP, g <= p < 3g the cond latents
+  * the hint variant's conditions from the batch: bbox_trajectories,
+    cam_parameter (absent: a zero camera), rot_id; the entity variant's
+    map is not a batch key, so its step raises, as the JAX step does
   * EDM reconstruction target = clean latents, w = (1 + s^2) / s^2
   * auxiliary single-frame spatial loss x0.5
   * EMA of the ControlNet parameters on gradient-sync steps
@@ -23,24 +26,44 @@ the loss takes them as a dict, so a test can hand in JAX's draws.
 
 Precision: the ControlNet keeps float32 master weights and casts each to
 the compute dtype where it is used, so the bf16 gradient of every use flows
-back into the float32 master through that cast. The optimizer is AdamW in
-float32 with linear warmup; gradients of the micro-steps are summed in the
-masters' .grad, and on every sync step their mean is clipped to
-max_grad_norm and applied (optax.MultiSteps over clip_by_global_norm and
-adamw in the JAX package). Like optax's schedule, the warmup starts from a
-learning rate of 0 on the first update.
+back into the float32 master through that cast. The micro-gradients are
+summed into one accumulator a leaf (TrainState.grad_acc); on every sync
+step their mean is clipped to max_grad_norm, AdamW applies it with linear
+warmup, and the accumulator is zeroed (optax.MultiSteps over
+clip_by_global_norm and adamw in the JAX package). Like optax's schedule,
+the warmup starts from a learning rate of 0 on the first update.
+
+The memory options of TrainConfig, as the JAX package defines them:
+  * grads_bf16: the loss is differentiated against bf16 copies of the
+    masters (TrainState.loss_params), so the gradients are bf16
+  * adam_mu_bf16: both Adam moments stored in bf16, updated in float32
+    (AdamWBF16, the JAX package's _scale_by_adam_bf16)
+  * grad_accum_dtype (with accumulation > 1): the accumulator stored in
+    that dtype, each micro-gradient summed in float32 and rounded once,
+    the float32 mean taken at the sync step (_multi_steps_acc)
+  * encode_outside_step: the frozen VAE and CLIP encodes run before the
+    step, with the step's own VAE draw, and hand it latents and clip_emb;
+    the step keeps only the UNet (make_encode_conditioning)
+
+On the card `Trainer.step` replays the micro-step (loss, backward and the
+accumulation) from one captured CUDA graph (`MicroStepGraph`), the
+counterpart of the JAX package's jitted step; the sync step's clip, AdamW
+and EMA run eagerly, with foreach ops. `Trainer.step_eager` and the CPU run
+the same micro-step from the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import time
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
-from posetraj_torch.configs import EDMConfig, KernelConfig, TrainConfig, use_kernels
-from posetraj_torch.core.init import default_compute_dtype, resolve_device
-from posetraj_torch.core.params import ema_decay_schedule, ema_update, leaves
+from posetraj_torch.configs import EDMConfig, TrainConfig, kernel_config, use_kernels
+from posetraj_torch.core.init import default_compute_dtype, device_constant, resolve_device
+from posetraj_torch.core.params import ema_decay_schedule, ema_update, leaves, tree_map
 from posetraj_torch.diffusion.edm import edm_loss_weight, edm_scalings, rand_cosine_interpolated
 from posetraj_torch.models import clip as clip_m
 from posetraj_torch.models import controlnet as cn
@@ -66,7 +89,7 @@ def added_time_ids_train(motion_values: torch.Tensor, fps: float = 6.0, noise_au
     """(B, 3) in the TRAIN order [fps, noise_aug, motion]; inference uses
     [fps, motion, noise_aug]."""
     b = motion_values.shape[0]
-    fixed = torch.tensor([fps, noise_aug], dtype=torch.float32, device=motion_values.device).expand(b, 2)
+    fixed = device_constant((fps, noise_aug), torch.float32, motion_values.device).expand(b, 2)
     return torch.cat([fixed, motion_values.reshape(b, 1).float()], dim=1)
 
 
@@ -86,6 +109,17 @@ def _vae_encode_frames(frozen_params: Dict, bundle, pixel_values: torch.Tensor, 
         logvars.append(lv)
     lat = vae_m.sample_latent(torch.cat(means), torch.cat(logvars), vae_eps) * bundle.vae.scaling_factor
     return lat.reshape(b, f, *lat.shape[1:])
+
+
+@torch.no_grad()
+def encode_conditioning(enc_params: Dict, bundle, pixel_values: torch.Tensor, vae_eps: torch.Tensor,
+                        compute_dtype) -> Dict[str, torch.Tensor]:
+    """The frozen encodes of one step on their own (encode_outside_step, the
+    JAX make_encode_conditioning): {"latents", "clip_emb"} from the VAE
+    encoder and CLIP in `enc_params`, with the step's VAE draw, so the step
+    that takes them computes what the fused step computes."""
+    return {"latents": _vae_encode_frames(enc_params, bundle, pixel_values, vae_eps),
+            "clip_emb": encode_image_clip_train(enc_params, bundle, pixel_values[:, 0], compute_dtype)}
 
 
 def draw_step_randoms(generator: torch.Generator, batch_size: int, num_frames: int, latent_shape,
@@ -117,11 +151,18 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
     """One EDM denoising-MSE step over a batch: (loss, metrics).
 
     batch: pixel_values (B, F, H, W, 3) and trajectories (B, F, H, W, 3) in
-    [-1, 1]; motion_values (B,). randoms: draw_step_randoms' dict."""
+    [-1, 1]; motion_values (B,); the hint variant's bbox_trajectories
+    (B, F, H, W, 3) in [-1, 1], cam_parameter (B, F, 12), rot_id (B,)
+    integer; latents (B, F, h, w, 4) and clip_emb (B, 1, D) where the frozen
+    encodes ran outside the step (encode_conditioning). randoms:
+    draw_step_randoms' dict."""
     u, c = bundle.unet, bundle.controlnet
     pixel_values = batch["pixel_values"]
     b, f = pixel_values.shape[:2]
-    latents = _vae_encode_frames(frozen_params, bundle, pixel_values, randoms["vae_eps"])
+    if "latents" in batch:
+        latents = batch["latents"]
+    else:
+        latents = _vae_encode_frames(frozen_params, bundle, pixel_values, randoms["vae_eps"])
 
     noise = randoms["noise"].float()
     sigmas = rand_cosine_interpolated(randoms["u_sigma"], EDMConfig())
@@ -132,8 +173,11 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
     c_in, c_out, c_skip = edm_scalings(sig)
     inp = noisy_latents * c_in
 
-    with torch.no_grad():
-        clip_emb = encode_image_clip_train(frozen_params, bundle, pixel_values[:, 0], compute_dtype)
+    if "clip_emb" in batch:
+        clip_emb = batch["clip_emb"]
+    else:
+        with torch.no_grad():
+            clip_emb = encode_image_clip_train(frozen_params, bundle, pixel_values[:, 0], compute_dtype)
     time_ids = added_time_ids_train(batch["motion_values"], noise_aug=tcfg.noise_aug_strength)
 
     if tcfg.conditioning_dropout_prob:
@@ -147,9 +191,11 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
     inp8 = torch.cat([inp, cond_rep], dim=-1)  # (B, F, h, w, 8)
 
     remat = _remat_mode(tcfg)
+    bbox = batch.get("bbox_trajectories")
     down_res, mid_res = cn.controlnet_forward(
         controlnet_params, c, inp8, timesteps, clip_emb, time_ids, controlnet_cond=batch["trajectories"],
-        compute_dtype=compute_dtype, remat=remat,
+        bbox_cond=None if bbox is None else bbox.to(compute_dtype), camera_cond=batch.get("cam_parameter"),
+        rot_id=batch.get("rot_id"), compute_dtype=compute_dtype, remat=remat,
     )
     model_pred = unet_m.unet_forward(frozen_params["unet"], u, inp8, timesteps, clip_emb, time_ids, down_res,
                                      mid_res, compute_dtype=compute_dtype, remat=remat).float()
@@ -181,92 +227,303 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
 
 
 def _check_supported(tcfg: TrainConfig) -> None:
-    for name, off in (("grads_bf16", False), ("adam_mu_bf16", False), ("grad_accum_dtype", None),
-                      ("encode_outside_step", False)):
-        if getattr(tcfg, name) != off:
-            raise NotImplementedError(f"TrainConfig.{name} is not in the port yet")
     if tcfg.lr_scheduler != "constant":
         raise NotImplementedError(tcfg.lr_scheduler)
 
 
+def _float32_power(base: float, count: int) -> float:
+    """base ** count in float32, as optax computes Adam's bias corrections."""
+    return float(np.float32(base) ** np.float32(count))
+
+
+class AdamWBF16(torch.optim.Optimizer):
+    """AdamW with both moments stored in bfloat16 (TrainConfig.adam_mu_bf16;
+    the JAX package's _scale_by_adam_bf16, then add_decayed_weights and the
+    learning rate). Each step, in float32:
+        m = bf16(b1 m + (1 - b1) g),  v = bf16(b2 v + (1 - b2) g^2)
+        p = p - lr (m / c1 / (sqrt(v / c2) + eps) + wd p)
+    with the stored (rounded) moments and c = 1 - b^t in float32. Leaves are
+    updated in groups of at most CHUNK elements, so the float32 temporaries
+    stay far below a float32 copy of the moments."""
+
+    CHUNK = 1 << 26
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 1e-2):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            live = [p for p in group["params"] if p.grad is not None]
+            for p in live:
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                st["step"] += 1
+            for chunk in _chunks(live, self.CHUNK):
+                count = self.state[chunk[0]]["step"]
+                c1, c2 = 1.0 - _float32_power(b1, count), 1.0 - _float32_power(b2, count)
+                grads = [p.grad.float() for p in chunk]
+                mu = [self.state[p]["exp_avg"] for p in chunk]
+                nu = [self.state[p]["exp_avg_sq"] for p in chunk]
+                m = [t.float() for t in mu]
+                torch._foreach_mul_(m, b1)
+                torch._foreach_add_(m, grads, alpha=1.0 - b1)
+                torch._foreach_copy_(mu, m)
+                v = [t.float() for t in nu]
+                torch._foreach_mul_(v, b2)
+                torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+                torch._foreach_copy_(nu, v)
+                del grads
+                m = [t.float() for t in mu]
+                v = [t.float() for t in nu]
+                torch._foreach_div_(m, c1)
+                torch._foreach_div_(v, c2)
+                torch._foreach_sqrt_(v)
+                torch._foreach_add_(v, group["eps"])
+                torch._foreach_div_(m, v)
+                torch._foreach_add_(m, chunk, alpha=group["weight_decay"])
+                torch._foreach_add_(chunk, m, alpha=-group["lr"])
+
+    def load_state_dict(self, state_dict):
+        """As Optimizer's, which casts each moment to its parameter's dtype;
+        the moments go back to bf16 (exactly: they were bf16 values)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = st[k].to(torch.bfloat16)
+
+
+def _chunks(tensors: List[torch.Tensor], limit: int):
+    """Consecutive groups of `tensors` of at most `limit` elements each (a
+    larger tensor alone)."""
+    group, n = [], 0
+    for t in tensors:
+        if group and n + t.numel() > limit:
+            yield group
+            group, n = [], 0
+        group.append(t)
+        n += t.numel()
+    if group:
+        yield group
+
+
 def make_optimizer(tcfg: TrainConfig, params):
-    """AdamW (float32 moments) with linear warmup to a constant learning
-    rate: (optimizer, scheduler). The schedule's first value is 0, as
+    """AdamW with linear warmup to a constant learning rate: (optimizer,
+    scheduler). float32 moments (torch.optim.AdamW), or bf16 ones under
+    adam_mu_bf16 (AdamWBF16). The schedule's first value is 0, as
     optax.linear_schedule's at count 0."""
     _check_supported(tcfg)
-    opt = torch.optim.AdamW(list(params), lr=tcfg.learning_rate, betas=(tcfg.adam_beta1, tcfg.adam_beta2),
-                            eps=tcfg.adam_epsilon, weight_decay=tcfg.adam_weight_decay)
+    kw = dict(lr=tcfg.learning_rate, betas=(tcfg.adam_beta1, tcfg.adam_beta2), eps=tcfg.adam_epsilon,
+              weight_decay=tcfg.adam_weight_decay)
+    opt = (AdamWBF16 if tcfg.adam_mu_bf16 else torch.optim.AdamW)(list(params), **kw)
     warmup = tcfg.lr_warmup_steps
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: min(1.0, n / warmup) if warmup > 0 else 1.0)
     return opt, sched
 
 
+def grad_accum_dtype(tcfg: TrainConfig) -> torch.dtype:
+    """The accumulator's dtype: TrainConfig.grad_accum_dtype where the
+    gradients of several micro-steps are summed, else float32 (the JAX
+    package takes the option only with accumulation > 1)."""
+    if tcfg.grad_accum_dtype is None or tcfg.gradient_accumulation_steps == 1:
+        return torch.float32
+    return getattr(torch, tcfg.grad_accum_dtype)
+
+
 @dataclasses.dataclass
 class TrainState:
-    """`step` counts micro-steps. The ControlNet's float32 masters carry the
-    summed micro-gradients in .grad between sync steps."""
+    """`step` counts micro-steps. `grad_acc` sums the micro-gradients of the
+    current accumulation window, a buffer a master (made on first use);
+    `loss_params` are the bf16 copies the loss is differentiated against
+    under grads_bf16 (else None)."""
 
     step: int
     controlnet_params: Dict
     ema_params: Optional[Dict]
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
+    grad_acc: Optional[List[torch.Tensor]] = None
+    loss_params: Optional[Dict] = None
 
 
 def global_norm(tensors) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors), 2, dtype=torch.float32)))
+
+
+def _grad_acc(state: TrainState, tcfg: TrainConfig) -> List[torch.Tensor]:
+    if state.grad_acc is None:
+        dt = grad_accum_dtype(tcfg)
+        state.grad_acc = [torch.zeros_like(p, dtype=dt) for p in leaves(state.controlnet_params)]
+    return state.grad_acc
+
+
+@torch.no_grad()
+def _accumulate(state: TrainState, tcfg: TrainConfig, grads) -> None:
+    """acc += g for every leaf with a gradient (in float32, rounded once to
+    the accumulator's dtype)."""
+    pairs = [(a, g) for a, g in zip(_grad_acc(state, tcfg), grads) if g is not None]
+    if pairs:
+        torch._foreach_add_([a for a, _ in pairs], [g for _, g in pairs])
+
+
+def micro_step(state: TrainState, frozen_params: Dict, bundle, tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
+               randoms: Dict[str, torch.Tensor], compute_dtype) -> Dict[str, torch.Tensor]:
+    """The loss, its gradient with respect to the ControlNet and the sum of
+    that gradient into state.grad_acc: what MicroStepGraph captures. Issues
+    no host synchronisation. Returns metrics as 0-d tensors, with
+    grad_norm, the global norm of this micro-step's gradient."""
+    masters = list(leaves(state.controlnet_params))
+    params = state.controlnet_params
+    if state.loss_params is not None:
+        params = state.loss_params
+        with torch.no_grad():
+            torch._foreach_copy_(list(leaves(params)), masters)
+    loss, metrics = edm_training_loss(params, frozen_params, bundle, tcfg, batch, randoms, compute_dtype)
+    grads = torch.autograd.grad(loss, list(leaves(params)), allow_unused=True)
+    metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
+    _accumulate(state, tcfg, grads)
+    return metrics
+
+
+def sync_step(state: TrainState, tcfg: TrainConfig) -> None:
+    """The update at the end of an accumulation window: the accumulator's
+    float32 mean is clipped to max_grad_norm and applied by the optimizer,
+    the scheduler steps, the accumulator is zeroed and the EMA steps (decay
+    0 on the first update, then diffusers' warmup ramp). foreach ops."""
+    accum = tcfg.gradient_accumulation_steps
+    masters = list(leaves(state.controlnet_params))
+    acc = _grad_acc(state, tcfg)
+    with torch.no_grad():
+        if acc[0].dtype == torch.float32:
+            torch._foreach_div_(acc, float(accum))
+            means = acc
+        else:
+            means = [a.float() for a in acc]
+            torch._foreach_div_(means, float(accum))
+        for p, m in zip(masters, means):
+            p.grad = m
+    torch.nn.utils.clip_grad_norm_(masters, tcfg.max_grad_norm)
+    state.optimizer.step()
+    state.scheduler.step()
+    for p in masters:
+        p.grad = None
+    with torch.no_grad():
+        torch._foreach_zero_(acc)
+    if state.ema_params is not None:
+        ema_update(state.ema_params, state.controlnet_params,
+                   ema_decay_schedule(state.step // accum, tcfg.ema_decay))
+
+
+def advance(state: TrainState, tcfg: TrainConfig) -> None:
+    """Counts a micro-step; every gradient_accumulation_steps-th one ends
+    its window with sync_step."""
+    state.step += 1
+    if state.step % tcfg.gradient_accumulation_steps == 0:
+        sync_step(state, tcfg)
 
 
 def apply_micro_grads(state: TrainState, tcfg: TrainConfig, grads) -> None:
     """Sums one micro-step's gradients (in the order of leaves(params)) into
-    the masters' .grad; on every gradient_accumulation_steps-th call, the
-    mean is clipped and applied, and the EMA steps (decay 0 on the first
-    update, then diffusers' warmup ramp): optax.MultiSteps over
-    make_optimizer's chain, then the JAX step's EMA. Updates `state` in
-    place."""
-    masters = list(leaves(state.controlnet_params))
-    with torch.no_grad():
-        for p, g in zip(masters, grads):
-            if p.grad is None:
-                p.grad = g
-            else:
-                p.grad.add_(g)
-    state.step += 1
-    accum = tcfg.gradient_accumulation_steps
-    if state.step % accum == 0:
-        with torch.no_grad():
-            for p in masters:
-                p.grad.div_(accum)
-        torch.nn.utils.clip_grad_norm_(masters, tcfg.max_grad_norm)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        if state.ema_params is not None:
-            ema_update(state.ema_params, state.controlnet_params,
-                       ema_decay_schedule(state.step // accum, tcfg.ema_decay))
+    the accumulator and advances: optax.MultiSteps over make_optimizer's
+    chain, then the JAX step's EMA. Updates `state` in place."""
+    _accumulate(state, tcfg, grads)
+    advance(state, tcfg)
 
 
 def train_step(state: TrainState, frozen_params: Dict, bundle, tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
                randoms: Dict[str, torch.Tensor], compute_dtype) -> Dict[str, torch.Tensor]:
-    """One micro-step: loss and ControlNet gradients, then apply_micro_grads.
-    Updates `state` in place; returns metrics with grad_norm, the global norm
-    of this micro-step's gradient."""
-    masters = list(leaves(state.controlnet_params))
-    loss, metrics = edm_training_loss(state.controlnet_params, frozen_params, bundle, tcfg, batch, randoms,
-                                      compute_dtype)
-    grads = torch.autograd.grad(loss, masters, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(masters, grads)]
-    metrics["grad_norm"] = global_norm(grads)
-    apply_micro_grads(state, tcfg, grads)
+    """One micro-step from the host: micro_step, then advance. Updates
+    `state` in place; returns micro_step's metrics."""
+    metrics = micro_step(state, frozen_params, bundle, tcfg, batch, randoms, compute_dtype)
+    advance(state, tcfg)
     return metrics
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+class MicroStepGraph:
+    """The micro-step captured once in a CUDA graph and replayed for every
+    later micro-step of the same key, as the JAX package compiles its train
+    step once (jax.jit(step_fn, donate_argnums=(0,))).
+
+    Everything the micro-step reads lives at a fixed address: the batch and
+    the five draws in static buffers (`buffers`), which each call fills
+    anew (the draws are made eagerly from the trainer's generator, so the
+    graph computes what the eager step computes and a resumed run draws
+    what an uninterrupted one does); the masters, the bf16 loss copies and
+    the accumulator in the trainer's state, which the optimizer and a
+    restore update in place; the frozen weights. The first call of a key
+    runs the micro-step eagerly on the capture stream (it builds the kernel
+    libraries, makes kernel A's workspace, lets cuBLAS and cuDNN choose and
+    lets the recompute backwards allocate), then captures it; later calls
+    replay. The key: the batch's keys, shapes and dtypes, the addresses of
+    the state's and the frozen tensors, the bundle, the TrainConfig, the
+    KernelConfig and the compute dtype; another key captures anew. The
+    graph holds kernel A's workspace as captured (groupnorm.workspaces).
+    Launch counts stay device launches (_native.capturing_launches). A
+    failed capture raises."""
+
+    def __init__(self):
+        self._key = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._held = ()  # device memory outside the graph's pool that its launches use
+        self._per_replay: Dict[str, int] = {}
+        self._outputs: Dict[str, torch.Tensor] = {}  # the captured metrics
+        self.buffers: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.capture_s = 0.0  # host seconds of the last capture and instantiation
+
+    @staticmethod
+    def key(trainer: "Trainer", batch: Dict[str, torch.Tensor]) -> tuple:
+        st = trainer.state
+        tensors = [*leaves(st.controlnet_params), *(st.grad_acc or ()), *leaves(st.loss_params or {}),
+                   *leaves(trainer.frozen_params)]
+        return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+                tuple(t.data_ptr() for t in tensors), trainer.bundle, trainer.tcfg, kernel_config(),
+                trainer.compute_dtype)
+
+    def load(self, trainer: "Trainer", batch: Dict[str, torch.Tensor], randoms: Dict[str, torch.Tensor]) -> bool:
+        """Copy one micro-step's batch and draws into the static buffers;
+        another key makes the buffers anew and drops the graph. Returns
+        whether a captured graph can serve the call."""
+        key = self.key(trainer, batch)
+        if key != self._key:
+            self._key, self._graph, self._per_replay, self._outputs = key, None, {}, {}
+            self.buffers = {"batch": {k: v.clone() for k, v in batch.items()},
+                            "randoms": {k: v.clone() for k, v in randoms.items()}}
+        else:
+            for name, src in (("batch", batch), ("randoms", randoms)):
+                for k, v in src.items():
+                    self.buffers[name][k].copy_(v)
+        return self._graph is not None
+
+    def run(self, trainer: "Trainer", batch: Dict[str, torch.Tensor],
+            randoms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One micro-step on a CUDA device (without the sync step); returns
+        its metrics."""
+        from posetraj_torch.ops import _native, groupnorm
+
+        _grad_acc(trainer.state, trainer.tcfg)
+        ready = self.load(trainer, batch, randoms)
+        step = lambda: micro_step(trainer.state, trainer.frozen_params, trainer.bundle, trainer.tcfg,
+                                  self.buffers["batch"], self.buffers["randoms"], trainer.compute_dtype)
+        if ready:
+            self._graph.replay()
+            _native.add_launches(self._per_replay)
+            return {k: v.clone() for k, v in self._outputs.items()}
+        stream = torch.cuda.Stream(device=trainer.device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            metrics = step()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with _native.capturing_launches() as per_replay, torch.cuda.graph(graph, stream=stream):
+            outputs = step()
+        self.capture_s = time.perf_counter() - t0
+        self._graph, self._per_replay, self._outputs, self._held = graph, per_replay, outputs, groupnorm.workspaces()
+        return metrics
 
 
 class Trainer:
@@ -278,10 +535,14 @@ class Trainer:
     copied into float32 masters (and an EMA copy), the frozen weights are
     used as given. Runs on `cuda` unless device="cpu". The step's random
     draws come from a generator seeded with tcfg.seed. The bundle's
-    KernelConfig is pinned here (resolve_kernels) and scopes every step;
-    only the default one is in the port yet (kernel 8 has no backward, and
-    training under the un-fused switches is not ported), and only the base
-    hint variant."""
+    KernelConfig, any of them, is pinned here (resolve_kernels) and scopes
+    every step; every hint variant trains (entity raises in its first step,
+    as in the JAX package: its map is no batch key). batch: the keys of
+    edm_training_loss (integer rot_id; every other value float32).
+
+    On the card `step` replays the micro-step from one captured CUDA graph
+    (`self.graph`, a MicroStepGraph); `step_eager` runs it from the host, on
+    the same state and generator, and is what the CPU runs."""
 
     def __init__(self, bundle, tcfg: TrainConfig, frozen_params: Dict, controlnet_params: Dict, mesh=None,
                  device=None, compute_dtype=None):
@@ -290,35 +551,95 @@ class Trainer:
         _check_supported(tcfg)
         self.device = resolve_device(device)
         bundle = resolve_kernels(bundle)
-        if bundle.kernels != KernelConfig():
-            raise NotImplementedError(f"Trainer under {bundle.kernels}: only the default KernelConfig is in the "
-                                      "port yet")
-        if bundle.controlnet.hint.variant != "base":
-            raise NotImplementedError(f"Trainer with the {bundle.controlnet.hint.variant!r} hint variant: its "
-                                      "training conditions are not in the port yet")
         if self.device.type == "cuda":
             set_float32_precision()
         self.bundle = bundle
         self.tcfg = tcfg
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
         # The step never runs the VAE decoder; it stays out of the trainer.
-        self.frozen_params = {k: v for k, v in frozen_params.items() if k != "vae"}
-        self.frozen_params["vae"] = {"encoder": frozen_params["vae"]["encoder"]}
-        for t in leaves(self.frozen_params):
+        frozen = {k: v for k, v in frozen_params.items() if k != "vae"}
+        frozen["vae"] = {"encoder": frozen_params["vae"]["encoder"]}
+        for t in leaves(frozen):
             t.requires_grad_(False)
-        params = _map(controlnet_params, lambda t: t.detach().to(torch.float32, copy=True).requires_grad_(True))
-        ema = _map(params, lambda t: t.detach().clone()) if tcfg.use_ema else None
+        self.encode_params = None
+        if tcfg.encode_outside_step:
+            # CLIP and the VAE encoder feed encode_conditioning; only the
+            # UNet stays in the step.
+            self.encode_params = {k: frozen[k] for k in ("vae", "clip")}
+            frozen = {"unet": frozen["unet"]}
+        self.frozen_params = frozen
+        params = tree_map(lambda t: t.detach().to(torch.float32, copy=True).requires_grad_(True), controlnet_params)
+        ema = tree_map(lambda t: t.detach().clone(), params) if tcfg.use_ema else None
         opt, sched = make_optimizer(tcfg, leaves(params))
-        self.state = TrainState(step=0, controlnet_params=params, ema_params=ema, optimizer=opt, scheduler=sched)
+        loss_params = (tree_map(lambda t: t.detach().to(torch.bfloat16).requires_grad_(True), params)
+                       if tcfg.grads_bf16 else None)
+        self.state = TrainState(step=0, controlnet_params=params, ema_params=ema, optimizer=opt, scheduler=sched,
+                                loss_params=loss_params)
+        _grad_acc(self.state, tcfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(tcfg.seed)
+        self.graph = MicroStepGraph()
 
-    def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        batch = {k: torch.as_tensor(v).to(self.device, torch.float32) for k, v in batch.items()}
+    def _prepare(self, batch: Dict):
+        """The batch on the device (integers as int64, the rest float32),
+        this micro-step's draws and, under encode_outside_step, the frozen
+        encodes."""
+        def put(v):
+            t = torch.as_tensor(v).to(self.device)
+            return t.float() if t.is_floating_point() else t.long()
+
+        batch = {k: put(v) for k, v in batch.items()}
         b, f, hh, ww = batch["pixel_values"].shape[:4]
         sf = self.bundle.vae.scale_factor
         randoms = draw_step_randoms(self.generator, b, f, (hh // sf, ww // sf, self.bundle.vae.latent_channels),
                                     self.device)
+        if self.encode_params is not None:
+            batch.update(encode_conditioning(self.encode_params, self.bundle, batch["pixel_values"],
+                                             randoms["vae_eps"], self.compute_dtype))
+        return batch, randoms
+
+    def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One micro-step (and, at the end of an accumulation window, the
+        update): on the card from the captured graph, on the CPU eagerly."""
+        if self.device.type != "cuda":
+            return self.step_eager(batch)
         with use_kernels(self.bundle.kernels):
+            batch, randoms = self._prepare(batch)
+            metrics = self.graph.run(self, batch, randoms)
+            advance(self.state, self.tcfg)
+        return metrics
+
+    def step_eager(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One micro-step issued from the host: the reference the graph is
+        held against."""
+        with use_kernels(self.bundle.kernels):
+            batch, randoms = self._prepare(batch)
             return train_step(self.state, self.frozen_params, self.bundle, self.tcfg, batch, randoms,
                               self.compute_dtype)
+
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds: the step, the float32 masters, the EMA,
+        the accumulator, the optimizer's and scheduler's state and the
+        generator's (references to the live tensors; torch.save copies)."""
+        return {"step": self.state.step, "controlnet": self.state.controlnet_params,
+                "ema": self.state.ema_params, "grad_acc": self.state.grad_acc,
+                "optimizer": self.state.optimizer.state_dict(), "scheduler": self.state.scheduler.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore `state_dict()`'s contents. Tensors are copied into the
+        trainer's own in place, so a captured graph, which holds their
+        addresses, stays valid."""
+        st = self.state
+        with torch.no_grad():
+            for name, dst in (("controlnet", st.controlnet_params), ("ema", st.ema_params), ("grad_acc", st.grad_acc)):
+                src = list(leaves(sd[name] or {}))
+                dst = list(leaves(dst or {}))
+                if len(src) != len(dst):
+                    raise ValueError(f"checkpoint {name}: {len(src)} tensors, the trainer has {len(dst)}")
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+        st.optimizer.load_state_dict(sd["optimizer"])
+        st.scheduler.load_state_dict(sd["scheduler"])
+        st.step = int(sd["step"])
+        self.generator.set_state(sd["generator"])

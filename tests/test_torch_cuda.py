@@ -753,3 +753,243 @@ def test_cuda_generate_keeps_its_graph_for_the_next_call():
     assert all(any(t is w for w in svd_controlnet._SHARED_GRAPH._held) for t in groupnorm.workspaces())
     _, _, other = run(init_params(bundle, seed=8))
     assert other is not None and other is not graph
+
+
+# --------------------------------------------------------------------------
+# Training on the card: the micro-step's graph, the variants, resume
+# --------------------------------------------------------------------------
+
+
+def _train_bundle(variant="base", kernels=None):
+    """Two levels 64 and 128 wide (head_dim 64), one layer a block, the tiny
+    VAE and CLIP: at 2x256x256 level 0 has 1024 tokens a frame, so A, B, C,
+    D and kernel 5's backward (in C's) all run in a micro-step."""
+    from posetraj_torch import configs
+    from posetraj_torch.pipeline import ModelBundle
+
+    u = configs.UNetConfig(block_out_channels=(64, 128), cross_attention_levels=(True, False),
+                           num_attention_heads=(1, 2), layers_per_block=1, cross_attention_dim=16,
+                           addition_time_embed_dim=8, projection_class_embeddings_input_dim=24, num_frames=2)
+    hint = configs.HintEncoderConfig(variant=variant, block_out_channels=(4, 8, 8, 16), embedding_channels=64,
+                                     temp_num_layers=1, temp_num_heads=2)
+    return ModelBundle(unet=u, controlnet=configs.ControlNetConfig(unet=u, hint=hint), vae=configs.VAEConfig.tiny(),
+                       clip=configs.CLIPVisionConfig.tiny(), kernels=kernels)
+
+
+def _trainer(variant="base", **tcfg_kw):
+    """A Trainer on the card over _train_bundle, its zero-initialised heads
+    and the cam projection given small random values so that the hint and
+    its condition reach the loss."""
+    from posetraj_torch.configs import TrainConfig
+    from posetraj_torch.pipeline import init_params
+    from posetraj_torch.train import Trainer
+
+    bundle = _train_bundle(variant)
+    params = init_params(bundle, seed=11)
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def live(node, path=""):
+        if isinstance(node, dict):
+            return {k: live(v, f"{path}.{k}") for k, v in node.items()}
+        if isinstance(node, list):
+            return [live(v, f"{path}.{i}") for i, v in enumerate(node)]
+        noise = (torch.randn(node.shape, generator=g, device="cuda") * 0.05).to(node.dtype)
+        if bool((node == 0).all()):
+            return noise.contiguous(memory_format=torch.channels_last) if node.ndim == 4 else noise
+        return node + noise if "cc_projection" in path else node
+
+    frozen = {k: params[k] for k in ("unet", "vae", "clip")}
+    return Trainer(bundle, TrainConfig(num_frames=2, height=256, width=256, **tcfg_kw), frozen,
+                   live(params["controlnet"]))
+
+
+def _train_batch(seed, size=256, **extra):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"pixel_values": torch.rand(1, 2, size, size, 3, generator=g, device="cuda") * 2 - 1,
+             "trajectories": torch.rand(1, 2, size, size, 3, generator=g, device="cuda") * 2 - 1,
+             "motion_values": torch.full((1,), 127.0, device="cuda")}
+    batch.update(extra)
+    return batch
+
+
+def _train_tensors(trainer):
+    """Masters, EMA, accumulator and Adam's moments, in a fixed order."""
+    from posetraj_torch.core.params import leaves
+
+    st = trainer.state
+    masters = list(leaves(st.controlnet_params))
+    moments = [st.optimizer.state[p][k] for p in masters if p in st.optimizer.state for k in ("exp_avg", "exp_avg_sq")]
+    return [*masters, *leaves(st.ema_params), *st.grad_acc, *moments]
+
+
+def _copy_state(trainer):
+    return [t.detach().clone() for t in _train_tensors(trainer)]
+
+
+def _cloned(obj):
+    """A copy of a state dict that later steps leave alone."""
+    if isinstance(obj, dict):
+        return {k: _cloned(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cloned(v) for v in obj)
+    return obj.detach().clone() if isinstance(obj, torch.Tensor) else obj
+
+
+def _max_diff(a, b):
+    assert len(a) == len(b)
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_train_graph_matches_eager():
+    """Four micro-steps (two updates) from one state: Trainer.step, whose
+    first call runs eagerly on the capture stream and captures and whose
+    later calls replay, against Trainer.step_eager; equal bit for bit where
+    two eager runs are (else no further apart than they are), with the same
+    launches of every kernel."""
+    _need_cuda()
+    trainer = _trainer(gradient_accumulation_steps=2, lr_warmup_steps=1, learning_rate=1e-4)
+    init = _cloned(trainer.state_dict())
+    batch = _train_batch(0)
+
+    def run(step):
+        trainer.load_state_dict(init)
+        _native.reset_launches()
+        losses = [float(step(batch)["loss"]) for _ in range(4)]
+        torch.cuda.synchronize()
+        return losses, dict(_native.LAUNCHES), _copy_state(trainer)
+
+    eager, again, graph = run(trainer.step_eager), run(trainer.step_eager), run(trainer.step)
+    spread = _max_diff(eager[2], again[2])
+    assert _max_diff(graph[2], eager[2]) <= spread
+    assert graph[1] == eager[1] and eager[1]["groupnorm"] > 0 and eager[1]["qkvt"] > 0 and eager[1]["flash_bwd"] > 0
+    if spread == 0:
+        assert graph[0] == eager[0]
+    assert trainer.graph.capture_s > 0 and all(any(t is w for w in trainer.graph._held)
+                                               for t in groupnorm.workspaces())
+
+
+@pytest.mark.cuda
+def test_cuda_train_graph_captures_anew_for_a_new_key():
+    """Another batch shape or KernelConfig is another key: the trainer's
+    graph captures anew (and again on the way back: it keeps one graph)."""
+    _need_cuda()
+    import dataclasses
+
+    from posetraj_torch.configs import KernelConfig
+
+    trainer = _trainer()
+    trainer.step(_train_batch(1))
+    first = trainer.graph._graph
+    trainer.step(_train_batch(2))
+    assert trainer.graph._graph is first
+    trainer.step(_train_batch(3, size=128))
+    second = trainer.graph._graph
+    assert second is not None and second is not first
+    trainer.bundle = dataclasses.replace(trainer.bundle, kernels=KernelConfig(qkvt_attn=False))
+    trainer.step(_train_batch(4, size=128))
+    assert trainer.graph._graph is not second
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_gate_under_grad():
+    """Kernel 8 has no backward: under grad its gate declines a LayerNorm
+    that a gradient flows through, which runs as F.layer_norm with its
+    gradient; without a gradient the same call launches kernel 8."""
+    _need_cuda()
+    from posetraj_torch.configs import KernelConfig, use_kernels
+    from posetraj_torch.ops import primitives
+
+    x = torch.randn(8192, 320, device="cuda", dtype=torch.bfloat16)
+    p = {"weight": torch.rand(320, device="cuda") + 0.5, "bias": torch.randn(320, device="cuda")}
+    with use_kernels(KernelConfig(fused_ln=True)):
+        leaf = x.clone().requires_grad_(True)
+        assert not layernorm.fused_layer_norm_applicable(leaf, p["weight"], p["bias"])
+        _native.reset_launches()
+        y = primitives.layer_norm(p, leaf)
+        y.float().square().sum().backward()
+        assert _native.LAUNCHES["layernorm"] == 0 and leaf.grad is not None
+        ref = leaf.detach().clone().requires_grad_(True)
+        torch.nn.functional.layer_norm(ref.float(), (320,), p["weight"], p["bias"]).to(x.dtype).float().square().sum(
+        ).backward()
+        assert torch.equal(leaf.grad, ref.grad)
+        with torch.no_grad():
+            assert layernorm.fused_layer_norm_applicable(leaf, p["weight"], p["bias"])
+            got = primitives.layer_norm(p, leaf)
+        torch.cuda.synchronize()
+        assert _native.LAUNCHES["layernorm"] == 1
+        _check(got, layernorm.layer_norm_plain(x, p["weight"], p["bias"]), 1e-2, rms_tol=2e-3)
+
+
+def _plain_wrappers():
+    """Every kernel wrapper of the model routed to its plain version (as
+    chip_smoke.plain_versions)."""
+    import contextlib
+    from unittest import mock
+
+    from posetraj_torch.ops.attention import dot_product_attention
+
+    stack = contextlib.ExitStack()
+    for module, name, value in (
+            (groupnorm, "group_norm", groupnorm.group_norm_plain), (mlp, "geglu_mlp", mlp.geglu_mlp_plain),
+            (qkvt, "attn_sublayer", qkvt.attn_sublayer_plain),
+            (temporal, "temporal_attn_sublayer", temporal.temporal_attn_sublayer_plain),
+            (flash, "flash_attention", dot_product_attention),
+            (flash, "flash_attention_tq", flash.flash_attention_tq_plain),
+            (layernorm, "layer_norm", layernorm.layer_norm_plain)):
+        stack.enter_context(mock.patch.object(module, name, value))
+    return stack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bbox", "cam"])
+def test_cuda_train_variant_matches_plain(variant):
+    """One micro-step of the bbox and cam variants with the kernels (the
+    graph's first call) against the same micro-step with every wrapper
+    plain: the accumulated gradient within 2e-2 relative RMS (chip_smoke
+    phase 5(a)'s tolerance: bf16 roundings through forward and backward)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    extra = {"bbox": {"bbox_trajectories": torch.rand(1, 2, 256, 256, 3, generator=g, device="cuda") * 2 - 1},
+             "cam": {"cam_parameter": torch.randn(1, 2, 12, generator=g, device="cuda")}}[variant]
+    trainer = _trainer(variant, conditioning_dropout_prob=0.0)
+    batch = _train_batch(5, **extra)
+    gen = trainer.generator.get_state()
+    _native.reset_launches()
+    with _plain_wrappers():
+        trainer.step_eager(batch)
+    assert sum(_native.LAUNCHES.values()) == 0
+    want = [a.float().clone() for a in trainer.state.grad_acc]
+    with torch.no_grad():
+        torch._foreach_zero_(trainer.state.grad_acc)
+    trainer.state.step = 0
+    trainer.generator.set_state(gen)
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["groupnorm"] > 0 and _native.LAUNCHES["qkvt"] > 0
+    got = trainer.state.grad_acc
+    num = sum(float((a.float() - b).square().sum()) for a, b in zip(got, want))
+    den = sum(float(b.square().sum()) for b in want)
+    assert 0 < den and (num / den) ** 0.5 <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resume(tmp_path):
+    """A run of five graphed micro-steps saved after the third, against a
+    new Trainer restored from that checkpoint for the last two: bit for bit
+    the same losses, masters, EMA, accumulator and moments."""
+    _need_cuda()
+    from posetraj_torch.train import restore_checkpoint, save_checkpoint
+
+    kw = dict(lr_warmup_steps=1, learning_rate=1e-4)
+    run = _trainer(**kw)
+    batches = [_train_batch(30 + i) for i in range(5)]
+    for b in batches[:3]:
+        run.step(b)
+    path = save_checkpoint(str(tmp_path), run.state.step, run)
+    want = [float(run.step(b)["loss"]) for b in batches[3:]]
+    resumed = _trainer(**kw)
+    restore_checkpoint(path, resumed)
+    got = [float(resumed.step(b)["loss"]) for b in batches[3:]]
+    assert got == want and resumed.state.step == 5
+    assert _max_diff(_copy_state(run), _copy_state(resumed)) == 0

@@ -3,6 +3,8 @@ package at the tiny config, float32 on the CPU, after `params_from_jax` of the
 same JAX-initialised parameters. Tolerance 2e-4 of the output's max: float32
 summation-order noise over dozens of chained layers."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,7 +53,13 @@ def step_case():
     of 2, with every zero conv randomised so the residual path (and the Q1
     in-loop re-add) reaches the output: the JAX step's output (off the TPU
     every kernel gate of the JAX package is closed, so it is the same under
-    any KernelConfig) and the port's parameters and inputs."""
+    any KernelConfig) and the port's parameters and inputs. Made once a
+    process: tests/test_torch_unfused.py takes the same case, read only."""
+    return _step_case()
+
+
+@functools.lru_cache(maxsize=None)
+def _step_case():
     from posetraj_tpu.configs import ControlNetConfig as JCn, UNetConfig as JU
     from posetraj_tpu.models import controlnet as jcn, unet as ju
 

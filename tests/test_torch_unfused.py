@@ -17,8 +17,10 @@ float32.
   takes these very fallback paths): 2e-4 of the output's max, as the
   default-config step. The un-fused path calls no version of kernels C and
   D, and GroupNorm with fused_groupnorm off takes the JAX XLA formulation.
-* The dispatch gates of kernels 6, 7, 8 and B, the scoping of the config by
-  generate() and the Trainer, and the wrappers' refusals.
+* The dispatch gates of kernels 6, 7, 8 and B (kernel 8's declining any
+  input a gradient flows through), the scoping of the config by
+  generate(), and the wrappers' refusals. Training under these switches
+  is held against the JAX package in tests/test_torch_train_stages.py.
 
 The CUDA kernels are held against the same plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 2).
@@ -258,6 +260,7 @@ class _OnCard:
     """Stands in for a CUDA tensor of a given shape in a dispatch rule."""
 
     is_cuda = True
+    requires_grad = False
 
     def __init__(self, *shape):
         self.shape = shape
@@ -275,6 +278,21 @@ def test_layer_norm_gate(shape, fused_ln, taken):
     with use_kernels(KernelConfig(fused_ln=fused_ln)):
         assert layernorm.fused_layer_norm_applicable(_OnCard(*shape)) is taken
         assert layernorm.fused_layer_norm_applicable(torch.zeros((1,) * len(shape)).expand(shape)) is False  # CPU
+
+
+def test_layer_norm_gate_declines_under_grad():
+    """Kernel 8 has no backward: its gate declines while grad mode is on
+    and x, the weight or the bias requires grad, and still admits the same
+    shape where no gradient is asked for."""
+    x, w = _OnCard(28, 2880, 320), torch.ones(320)
+    needs = _OnCard(28, 2880, 320)
+    needs.requires_grad = True
+    with use_kernels(KernelConfig(fused_ln=True)):
+        assert layernorm.fused_layer_norm_applicable(x, w, w)
+        assert not layernorm.fused_layer_norm_applicable(needs, w, w)
+        assert not layernorm.fused_layer_norm_applicable(x, w.requires_grad_(True), w)
+        with torch.no_grad():
+            assert layernorm.fused_layer_norm_applicable(needs, w, w)
 
 
 @pytest.mark.parametrize("s,heads,c,taken", [
@@ -333,15 +351,6 @@ def test_generate_runs_under_the_bundle_kernels(monkeypatch):
         pipe_m.generate(args[0], bundle, pipe_m.PipelineConfig(), *args[2:], output_latent=True, device="cpu")
         assert seen[-1] == want
     assert kernel_config() == KernelConfig.from_env()
-
-
-def test_trainer_refuses_a_non_default_kernel_config():
-    from posetraj_torch.configs import TrainConfig
-    from posetraj_torch.pipeline import ModelBundle
-    from posetraj_torch.train import Trainer
-
-    with pytest.raises(NotImplementedError, match="KernelConfig"):
-        Trainer(ModelBundle(kernels=UNFUSED), TrainConfig(), {}, {}, device="cpu")
 
 
 def test_wrappers_refuse_tensors_that_require_grad():

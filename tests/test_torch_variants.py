@@ -185,15 +185,6 @@ def test_params_from_jax_tree_matches_init(variant, size):
     assert got == want
 
 
-def test_trainer_refuses_hint_variants():
-    from posetraj_torch.configs import TrainConfig
-    from posetraj_torch.pipeline import ModelBundle
-    from posetraj_torch.train import Trainer
-
-    with pytest.raises(NotImplementedError, match="'cam' hint variant"):
-        Trainer(ModelBundle.tiny("cam"), TrainConfig(), {}, {}, device="cpu")
-
-
 # --------------------------------------------------------------------------
 # generate() and the pipeline (the cam variant's generate() against the JAX
 # package's is in test_torch_pipeline.py, on that file's parameters)
