@@ -4,7 +4,7 @@ in PERF.md): the quickest proof that the port builds and runs on the card,
 for inference and for training.
 
     python3 chip_smoke.py            # every phase, as the checks run it
-    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6 and 8
+    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6, 8 and 10(c)
 
 Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
@@ -111,6 +111,29 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      twice with the eager loop (the loop before the graph) and twice with
      the graph (the first call captures it), s/request at each
      configuration, the outputs equal where two eager runs are;
+ 10. the data layer and the two drivers: (a) every port module imports
+     with PIL, cv2, imageio, safetensors and tensorboard refused (the
+     readers a card host may lack); rasterize_video on the card, hard and gaussian,
+     at 14x576x1024 and 14x320x576 with 64 and 256 trajectories, against
+     the CPU on three frames (gaussian 1e-5; hard equal but near a
+     threshold), ms and peak memory; the host C++ library built with g++,
+     ms a video, its disagreements with the card's hard mode only on
+     line-circle overlaps or near a threshold, and few; (b) the training
+     CLI's loop (train/cli.train_loop), stage ft_cam at full width and
+     depth, 14x320x576, batch 1, accumulation 2, 4 micro-steps on the CLI's
+     TrajectoryVIPSegDataset (--rasterizer native, --cam_norm) over a
+     VIPSeg-layout folder of 720p JPEGs written under build/, through
+     PrefetchLoader with 8 workers, a checkpoint and the diffusers exports
+     at step 4 and a 25-step validation render: finite losses, 4 metrics
+     lines, the checkpoint restored bitwise, the exports the converter's
+     state dicts of the live ControlNet and EMA, the render finite and its
+     GIF written, every training kernel launched; save and export seconds and
+     bytes; s/micro-step through the loop against Trainer.step alone in
+     turns, the loop's busy share; (c) the inference driver:
+     build_pipeline, then blender_sample with --bbox at 14x576x1024 and
+     vipseg_sample (base) at 14x320x576 with a host-library control, each
+     bitwise a direct pipeline call and launching phase 4's kernels a
+     request; s/request;
   7. (printed last) a `kernels` summary, the JSON line of kernel numbers,
      and the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
@@ -2071,6 +2094,473 @@ def resume_check(torch, params, f, h, w, card):
     return size, save_s, restore_s
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the data layer, the training CLI's loop, the inference driver
+# ---------------------------------------------------------------------------
+
+# Readers the JAX package imports lazily and a card host may lack: every
+# port module must import with each of them refused (import_check).
+READERS = ("PIL", "cv2", "imageio", "safetensors", "tensorboard", "torch.utils.tensorboard")
+# The device rasterizer against itself on the CPU, as tests/test_torch_data.py
+# holds it against the JAX package: gaussian within 1e-5; hard equal but on
+# pixels whose least squared distance lies within RASTER_NEAR of a threshold,
+# those at most RASTER_HARD_BOUND of the pixels compared. The CPU runs
+# RASTER_CPU_FRAMES of each video (rasterize, the per-frame function). The
+# host library differs from the card's hard mode only on line-circle overlaps
+# or near a threshold, and on at most HOST_BOUND of those pixels.
+RASTER_NEAR = 1e-4
+RASTER_HARD_BOUND = 1e-3
+HOST_BOUND = 0.1
+RASTER_CPU_FRAMES = (0, 6, 12)
+RASTER_CASES = ((576, 1024, 64), (576, 1024, 256), (320, 576, 64), (320, 576, 256))
+# Rounds of (loop, Trainer.step alone, Trainer.step alone, loop) turns of
+# LOOP_TURN_STEPS micro-steps that time 10(b).
+LOOP_TIME_ROUNDS = 2
+LOOP_TURN_STEPS = 3
+# The VIPSeg-layout folder 10(b) reads: videos at VIPSeg's 720p, their
+# frames JPEG, LOOP_TRACKS CoTracker tracks each.
+VIPSEG_VIDEOS, VIPSEG_LEN, VIPSEG_HW, LOOP_TRACKS = 3, 24, (720, 1280), 64
+
+
+def import_check():
+    """Every module of posetraj_torch imports in a fresh interpreter with
+    READERS refused, and brings in nothing of JAX or the JAX package."""
+    code = (
+        "import pkgutil, sys\n"
+        f"for m in {READERS!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import posetraj_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(posetraj_torch.__path__, 'posetraj_torch.')]\n"
+        "for n in names:\n"
+        "    __import__(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'posetraj_tpu'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=HERE)
+    say(f"  (a) every posetraj_torch module imports with {', '.join(READERS)} refused: {res.stdout.strip()} "
+        f"(modules, JAX modules loaded) in {time.perf_counter() - t0:.1f} s {'ok' if res.returncode == 0 else 'FAIL'}")
+    if res.returncode != 0:
+        fail(f"a port module does not import without the readers, or imports JAX: {res.stdout}{res.stderr[-2000:]}")
+
+
+def seeded_tracks(seed, k, f, h, w):
+    """(k, f, 2) float32 [x, y] random walks over an h x w frame."""
+    rng = np.random.RandomState(seed)
+    start = rng.rand(k, 1, 2) * [w, h]
+    return (start + rng.randn(k, f, 2).cumsum(axis=1) * 6.0).astype(np.float32)
+
+
+def near_threshold(torch, pr, tracks, valid, t, h, w):
+    """(H, W) bool on the card: pixels of frame t whose least squared
+    distance lies within RASTER_NEAR of the line's or the circle's
+    threshold, and (H, W) bool: pixels a line and a circle both cover."""
+    d_line, d_circle = pr.min_distances(tracks[:, t], tracks[:, t + 1], valid, h, w, pr.chunk_size(h, w))
+    line, circle = pr.masks(d_line, d_circle, "hard", 3, 3, 3.0)
+    near = ((d_line - 1.5**2).abs() <= RASTER_NEAR) | ((d_circle - 3.0**2).abs() <= RASTER_NEAR)
+    return near, (line * circle).bool()
+
+
+def raster_check(torch, card):
+    """Phase 10(a): rasterize_video on the card, hard and gaussian, at
+    14x576x1024 and 14x320x576 with 64 and 256 trajectories (every seventh
+    invalid), against the same code on the CPU (RASTER_CPU_FRAMES); ms a
+    video and peak transient memory. Then the host C++ library (built with
+    g++ at first use): its build, ms a video, and its disagreements with
+    the card's hard mode on the same floored tracks, all valid, which must
+    lie on line-circle overlaps (the library draws trajectory after
+    trajectory, the card every circle last) or near a threshold."""
+    from posetraj_torch.ops import host_rasterize
+    from posetraj_torch.ops import rasterize as pr
+
+    f = 14
+    t0 = time.perf_counter()
+    built = not host_rasterize.lib_path().exists()
+    if not host_rasterize.is_available():
+        fail("the host rasterizer library does not build")
+    say(f"  (a) host rasterizer library {'built with g++' if built else 'found built'} in "
+        f"{time.perf_counter() - t0:.2f} s ({host_rasterize.lib_path().name})")
+    for h, w, k in RASTER_CASES:
+        tracks = seeded_tracks(h * 7 + k, k, f, h, w)
+        valid = np.arange(k) % 7 != 3
+        td, vd = torch.from_numpy(tracks).cuda(), torch.from_numpy(valid).cuda()
+        tc, vc = torch.from_numpy(tracks), torch.from_numpy(valid)
+        for mode in ("hard", "gaussian"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            video = pr.rasterize_video(td, vd, f, h, w, mode)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            ms = cuda_ms(lambda: pr.rasterize_video(td, vd, f, h, w, mode), reps=3, inner=1)
+            t0 = time.perf_counter()
+            cpu = [pr.rasterize(tc[:, t], tc[:, t + 1], vc, h, w, mode) for t in RASTER_CPU_FRAMES]
+            cpu_s = (time.perf_counter() - t0) / len(RASTER_CPU_FRAMES)
+            got = video.cpu()
+            ok = (tuple(video.shape) == (f, h, w, 3) and bool(torch.isfinite(got).all()) and not got[-1].any())
+            if mode == "gaussian":
+                err = max(float((got[t] - c).abs().max()) for t, c in zip(RASTER_CPU_FRAMES, cpu))
+                ok = ok and err <= 1e-5
+                detail = f"max abs diff vs CPU {err:.3g} (tol 1e-5)"
+            else:
+                differ = outside = 0
+                for t, c in zip(RASTER_CPU_FRAMES, cpu):
+                    d = (got[t] != c).any(-1)
+                    near = near_threshold(torch, pr, td, vd, t, h, w)[0].cpu()
+                    differ += int(d.sum())
+                    outside += int((d & ~near).sum())
+                bound = RASTER_HARD_BOUND * h * w * len(RASTER_CPU_FRAMES)
+                ok = ok and outside == 0 and differ <= bound and bool(got[:-1, ..., 0].any() and got[:-1, ..., 1].any())
+                detail = (f"{differ} pixels differ from the CPU, {outside} of them away from a threshold (bound "
+                          f"{bound:.0f}, 0)")
+            say(f"  (a) rasterize_video {mode:8s} {f}x{h}x{w} K={k}: {ms:.2f} ms a video, peak {peak:.0f} MiB "
+                f"transient; CPU {cpu_s:.2f} s a frame; {detail} {'ok' if ok else 'FAIL'} on {card}")
+            if not ok:
+                fail(f"rasterize_video {mode} on the card disagrees with the CPU at {f}x{h}x{w}, K={k}")
+            del video, got
+        # The host library against the card's hard mode.
+        ints = np.floor(tracks)
+        ti, vall = torch.from_numpy(ints).cuda(), torch.ones(k, dtype=torch.bool, device="cuda")
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host = host_rasterize.rasterize_trajectory_video_native(ints, f, (h, w))
+            secs.append(time.perf_counter() - t0)
+        dev = (pr.rasterize_video(ti, vall, f, h, w, "hard") * 255).to(torch.uint8).cpu().numpy()
+        differ = (host != dev).any(-1)
+        allowed = np.zeros_like(differ)
+        for t in range(f - 1):
+            near, overlap = near_threshold(torch, pr, ti, vall, t, h, w)
+            allowed[t] = (near | overlap).cpu().numpy()
+        outside = int((differ & ~allowed).sum())
+        ok = outside == 0 and int(differ.sum()) <= HOST_BOUND * int(allowed.sum()) and not host[-1].any()
+        say(f"  (a) host library {f}x{h}x{w} K={k}: {statistics.median(secs) * 1e3:.1f} ms a video (median of 3); "
+            f"{int(differ.sum())} pixels differ from the card's hard mode, on line-circle overlaps or near a "
+            f"threshold: {int(allowed.sum())} such pixels (bound {HOST_BOUND} of them), {outside} elsewhere "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the host rasterizer disagrees with the card's hard mode beyond its bound at {f}x{h}x{w}, K={k}")
+        torch.cuda.empty_cache()
+
+
+def make_vipseg_folder(root, seed):
+    """A folder in VIPSeg's layout under `root`, from a seed: imgs/<video>/
+    of VIPSEG_LEN noise JPEGs at VIPSEG_HW, trajectory_CoTracker_all/
+    <video>.json of LOOP_TRACKS tracks, camera/<video>/camera.npy (4D-Humans'
+    pred_cam_R and pred_cam_T; the last video's T holds a NaN, which the
+    dataset zeroes), train.txt of every video but the last and val.txt of the
+    last. Returns (folder, camera folder)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    names = [f"{seed}_{v}" for v in range(VIPSEG_VIDEOS)]
+    for v, name in enumerate(names):
+        os.makedirs(os.path.join(root, "imgs", name))
+        for i in range(VIPSEG_LEN):
+            Image.fromarray(rng.randint(0, 256, VIPSEG_HW + (3,), np.uint8)).save(
+                os.path.join(root, "imgs", name, f"{i:05d}.jpg"), quality=90)
+        tracks = seeded_tracks(seed * 100 + v, LOOP_TRACKS, VIPSEG_LEN, *VIPSEG_HW)
+        os.makedirs(os.path.join(root, "trajectory_CoTracker_all"), exist_ok=True)
+        with open(os.path.join(root, "trajectory_CoTracker_all", f"{name}.json"), "w") as fh:
+            json.dump({str(i): tr.tolist() for i, tr in enumerate(tracks)}, fh)
+        cam_t = rng.randn(VIPSEG_LEN, 3).astype(np.float32)
+        if v == len(names) - 1:
+            cam_t[5, 1] = np.nan
+        os.makedirs(os.path.join(root, "camera", name))
+        np.save(os.path.join(root, "camera", name, "camera.npy"),
+                {"pred_cam_R": rng.randn(VIPSEG_LEN, 3, 3).astype(np.float32), "pred_cam_T": cam_t})
+    for split, members in (("train.txt", names[:-1]), ("val.txt", names[-1:])):
+        with open(os.path.join(root, split), "w") as fh:
+            fh.write("".join(n + "\n" for n in members))
+    return root, os.path.join(root, "camera")
+
+
+def train_cli_check(torch, native, params, card, training_kernels):
+    """Phase 10(b): the training CLI's loop (train/cli.train_loop) at full
+    width and depth, stage ft_cam (the cam hint encoder swapped into phase
+    3's ControlNet), 14x320x576, batch 1, accumulation 2, on the CLI's own
+    TrajectoryVIPSegDataset (cli.build_dataset, --rasterizer native,
+    --cam_norm) over a make_vipseg_folder, read through PrefetchLoader with
+    8 workers (JPEG decode, resize and rasterization in its threads): 4
+    micro-steps, a checkpoint with the diffusers exports and a 25-step
+    validation render of the held-out video at step 4, in a temporary
+    directory under build/ that the phase removes. Checks every loss
+    finite, 4 metrics lines, the checkpoint restored into a fresh trainer
+    bitwise the live state, each export the converter's state dict of the
+    live ControlNet and EMA, the render finite and its GIF written, every
+    training kernel launched. Then s/micro-step through the loop against
+    Trainer.step alone, medians of turns taken in turns, and the loop's
+    busy share."""
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from posetraj_torch.core.params import tree_map
+    from posetraj_torch.data import datasets as data_m
+    from posetraj_torch.data import export
+    from posetraj_torch.pipeline import ModelBundle
+    from posetraj_torch.tools.convert_weights import params_to_diffusers
+    from posetraj_torch.train import Trainer
+    from posetraj_torch.train import checkpoints as ckpt
+    from posetraj_torch.train import cli
+    from posetraj_torch.utils import MetricsLogger
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase10-", dir=os.path.join(HERE, "build"))
+    try:
+        t0 = time.perf_counter()
+        folder, cam_path = make_vipseg_folder(os.path.join(root, "vipseg"), 1010)
+        folder_s = time.perf_counter() - t0
+        args = cli.parse_args(["--stage", "ft_cam", "--video_folder", folder, "--cam_path", cam_path, "--output_dir",
+                               os.path.join(root, "out"), "--height", "320", "--width", "576", "--num_frames", "14",
+                               "--per_device_batch_size", "1", "--gradient_accumulation_steps", "2",
+                               "--max_train_steps", "4", "--checkpointing_steps", "4", "--validation_steps", "4",
+                               "--num_validation_samples", "1", "--num_inference_steps", "25", "--num_workers", "8",
+                               "--num_train_epochs", "1000", "--cam_norm", "--rasterizer", "native"])
+        bundle = ModelBundle.with_variant("cam")
+        _, hint = variant_hint_params(torch, "cam", 31)
+        cn_params = dict(params["controlnet"], controlnet_cond_embedding=hint)
+        frozen = {k: params[k] for k in ("unet", "vae", "clip")}
+        cn_dtypes = tree_map(lambda t: t.dtype, cn_params)
+        tcfg = cli.train_config(args)
+        trainer = Trainer(bundle, tcfg, frozen, cn_params, device="cuda")
+        # The datasets as cli.main builds them with --validation_folder.
+        dataset = cli.build_dataset(args)
+        val_dataset = cli.build_dataset(args, root=folder, split_file=os.path.join(folder, "val.txt"))
+        val_dataset.cam_mask_ratio = 0.0
+        if len(dataset) != 4 * (VIPSEG_VIDEOS - 1) or len(val_dataset) != 4:
+            fail(f"the VIPSeg folder gave {len(dataset)} training and {len(val_dataset)} validation samples")
+        t0 = time.perf_counter()
+        dataset[0]
+        sample_s = time.perf_counter() - t0
+        os.makedirs(args.output_dir)
+
+        saves, exports, renders, entries, validations = [], [], [], [], []
+        real_save, real_export, real_step = ckpt.save_checkpoint, ckpt.export_diffusers, trainer.step
+        real_gif = export.save_side_by_side_gif
+
+        def timed(fn, log):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                log.append((time.perf_counter() - t0, out))
+                return out
+            return run
+
+        def step(batch):
+            entries.append(time.perf_counter())
+            return real_step(batch)
+
+        def keep_render(videos, path, fps=7):
+            renders.append([np.asarray(export._host(v)) for v in videos])
+            return real_gif(videos, path, fps)
+
+        with mock.patch.object(ckpt, "save_checkpoint", timed(real_save, saves)), \
+                mock.patch.object(ckpt, "export_diffusers", timed(real_export, exports)), \
+                mock.patch.object(export, "save_side_by_side_gif", keep_render), \
+                mock.patch.object(cli, "run_validation", timed(cli.run_validation, validations)), \
+                mock.patch.object(trainer, "step", step):
+            logger = MetricsLogger(args.output_dir)
+            native.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = cli.train_loop(args, trainer, frozen, cn_dtypes, dataset, val_dataset, logger)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            launches = dict(native.LAUNCHES)
+            first_steps = [b - a for a, b in zip(entries[:-1], entries[1:])]
+            logger.close()
+        lines = [json.loads(x) for x in open(os.path.join(args.output_dir, "posetraj.metrics.jsonl"))]
+        ckpt_dir = os.path.join(args.output_dir, "checkpoint-4")
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, ckpt.STATE_FILE))
+        export_bytes = sum(os.path.getsize(p) for _, p in exports)
+        say(f"  (b) VIPSeg-layout folder ({VIPSEG_VIDEOS} videos of {VIPSEG_LEN} {VIPSEG_HW[0]}x{VIPSEG_HW[1]} "
+            f"JPEGs, {LOOP_TRACKS} tracks each) written in {folder_s:.2f} s; one sample read "
+            f"(decode, resize, native rasterizer) in {sample_s * 1e3:.0f} ms on one thread")
+        say(f"  (b) training CLI loop, stage ft_cam at full width and depth, 14x320x576, batch 1, accumulation 2, "
+            f"{len(dataset)} TrajectoryVIPSegDataset samples through PrefetchLoader (8 workers): 4 micro-steps in "
+            f"{loop_s:.2f} s "
+            f"with the checkpoint, the exports and the render; losses {[round(x['loss'], 5) for x in lines]}; "
+            f"checkpoint {ckpt_bytes / 1e9:.2f} GB saved in {sum(s for s, _ in saves):.2f} s; exports "
+            f"{[os.path.basename(p) for _, p in exports]} {export_bytes / 1e9:.2f} GB written in "
+            f"{sum(s for s, _ in exports):.2f} s; the validation render (a new pipeline, its graph captured) "
+            f"{sum(s for s, _ in validations):.2f} s; micro-steps 1-3 entry to entry "
+            f"{[round(x, 3) for x in first_steps]} s (the first runs eagerly and captures); launches {launches} "
+            f"on {card}")
+
+        # The checkpoint into a fresh trainer, bitwise the live state.
+        fresh = Trainer(bundle, tcfg, frozen, cn_params, device="cuda")
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(ckpt_dir, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        a, b = train_state_groups(trainer), train_state_groups(fresh)
+        restored = (all(len(a[k]) == len(b[k]) > 0 and all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+                    and fresh.state.step == trainer.state.step == 4
+                    and torch.equal(fresh.generator.get_state(), trainer.generator.get_state()))
+        del fresh, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Each export (.safetensors where safetensors imports, else .npz): the
+        # converter's state dict of the live ControlNet / EMA.
+        same = []
+        for (_, path), tree in zip(exports, (trainer.state.controlnet_params, trainer.state.ema_params)):
+            want = params_to_diffusers(tree, "controlnet")
+            if path.endswith(".safetensors"):
+                from safetensors.numpy import load_file
+
+                got = load_file(path)
+            else:
+                got = dict(np.load(path))
+            same.append(sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want))
+            del want, got
+        (gt, control, out), = renders
+        gif = os.path.join(args.output_dir, "validation-4", "sample0.gif")
+        gif_frames = Image.open(gif).n_frames if os.path.exists(gif) else 0
+        render_ok = (out.shape == (14, 320, 576, 3) and bool(np.isfinite(out).all()) and 0 <= out.min() <= out.max() <= 1
+                     and gif_frames == 14)
+        ok = (last == 4 and len(lines) == 4 and all(np.isfinite(x["loss"]) for x in lines) and restored
+              and len(exports) == 2 and all(same) and render_ok and len(saves) == 1 and len(validations) == 1
+              and all(launches[k] > 0 for k in training_kernels))
+        say(f"  (b) restored into a fresh trainer in {restore_s:.2f} s: params, EMA, moments, accumulator, step, "
+            f"generator bitwise the live state {restored}; exports equal params_to_diffusers of the live "
+            f"ControlNet and EMA {same}; validation render {out.shape} in [{out.min():.3f}, {out.max():.3f}], "
+            f"its GIF {gif_frames} frames, {render_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the training CLI's loop: a loss, the metrics, the checkpoint, an export, the render or a kernel "
+                 "launch is wrong")
+
+        # s/micro-step through the loop against Trainer.step alone, in turns.
+        # Checkpoints, exports and renders are off in these turns.
+        turn_args = argparse.Namespace(**vars(args))
+        turn_args.checkpointing_steps, turn_args.validation_steps = 10**9, 0
+        batches = [data_m._collate([dataset[i]], ("img_key",)) for i in range(LOOP_TURN_STEPS)]
+        samples = {"loop": [], "alone": []}
+
+        def loop_turn():
+            entries.clear()
+            turn_args.max_train_steps = trainer.state.step + LOOP_TURN_STEPS
+            cli.train_loop(turn_args, trainer, frozen, cn_dtypes, dataset, val_dataset, logger)
+            torch.cuda.synchronize()
+            entries.append(time.perf_counter())
+            return [b - a for a, b in zip(entries[:-1], entries[1:])]
+
+        def alone_turn():
+            out = []
+            for batch in batches:
+                t0 = time.perf_counter()
+                real_step(batch)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return out
+
+        logger = MetricsLogger(os.path.join(root, "turns"))
+        with mock.patch.object(ckpt, "save_checkpoint", lambda *a, **k: None), \
+                mock.patch.object(trainer, "step", step):
+            for _ in range(LOOP_TIME_ROUNDS):
+                for name, fn in (("loop", loop_turn), ("alone", alone_turn), ("alone", alone_turn),
+                                 ("loop", loop_turn)):
+                    gc.collect()
+                    samples[name].extend(fn())
+            turn_args.max_train_steps = trainer.state.step + 4
+            prof = profile_step(torch, lambda: cli.train_loop(turn_args, trainer, frozen, cn_dtypes, dataset,
+                                                              val_dataset, logger))
+        logger.close()
+        loop_ms, alone_ms = (statistics.median(samples[k]) * 1e3 for k in ("loop", "alone"))
+        device_ms = sum(v[0] for v in prof[1].values()) / 4
+        span = lambda k: f"{min(samples[k]):.4f}-{max(samples[k]):.4f}"
+        say(f"  (b) s/micro-step through the loop {loop_ms / 1e3:.4f} ({span('loop')}, {len(samples['loop'])} "
+            f"micro-steps) against Trainer.step alone {alone_ms / 1e3:.4f} ({span('alone')}, "
+            f"{len(samples['alone'])}), medians of turns taken in turns: the loop (metrics read a micro-step, "
+            f"the loader) adds {loop_ms - alone_ms:.1f} ms; device time {device_ms:.1f} ms a micro-step under "
+            f"torch.profiler, busy share of the loop {device_ms / loop_ms:.3f} on {card}")
+        del trainer, logger
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def driver_check(torch, native, steps, per_request, card):
+    """Phase 10(c): the inference driver's per-sample functions on
+    build_pipeline(None, None, variant) (random full-width parameters from
+    seeded torch generators): blender_sample with --bbox at 14x576x1024 and
+    vipseg_sample with the base variant at the driver's default 14x320x576,
+    its control from the host library. Each must equal a direct pipeline
+    call on the same inputs and seed, bitwise, and each request launch what
+    phase 4's (and phase 8's bbox) request launched."""
+    from posetraj_torch import inference
+    from posetraj_torch.data.datasets import _normalize
+    from posetraj_torch.ops import host_rasterize
+    from posetraj_torch.ops.rasterize import rasterize_host, scale_trajectories
+
+    rng = np.random.RandomState(1010)
+    cases = []
+    b_args = inference.parse_args(["--mode", "blender", "--bbox", "--data_root", "in-memory", "--height", "576",
+                                   "--width", "1024", "--steps", str(steps)])
+    f, hh, ww = b_args.num_frames, b_args.height, b_args.width
+    corners = seeded_tracks(1011, 8, f, hh, ww).transpose(1, 0, 2).copy()
+    tracks = np.floor(seeded_tracks(1012, 64, f, hh, ww))
+    sample = {"pixel_values": _normalize(rng.randint(0, 256, (f, hh, ww, 3)).astype(np.float32)),
+              "trajectories": _normalize(rasterize_host(tracks, f, (hh, ww), impl="native").astype(np.float32)),
+              "bbox_trajectories": _normalize(host_rasterize.rasterize_bbox_video_native(corners, f, (hh, ww))
+                                              .astype(np.float32))}
+
+    def blender_direct(pipe):
+        image = (sample["pixel_values"][0] + 1.0) / 2.0
+        return pipe(image[None], ((sample["trajectories"] + 1.0) / 2.0)[None], height=hh, width=ww, num_frames=f,
+                    num_inference_steps=steps, seed=b_args.seed,
+                    bbox_condition=(sample["bbox_trajectories"][None] + 1.0) / 2.0)
+
+    cases.append(("blender --bbox", "bbox", lambda pipe: inference.blender_sample(pipe, sample, b_args),
+                  blender_direct))
+    v_args = inference.parse_args(["--mode", "vipseg", "--data_root", "in-memory", "--steps", str(steps)])
+    f, hv, wv = v_args.num_frames, v_args.height, v_args.width
+    image = rng.rand(hv, wv, 3).astype(np.float32)
+    pts = scale_trajectories(seeded_tracks(1013, 64, f, 480, 854), (480, 854), (hv, wv))
+    control = rasterize_host(pts, f, (hv, wv), impl="native").astype(np.float32) / 255.0
+
+    def vipseg_direct(pipe):
+        return pipe(image[None], control[None], height=hv, width=wv, num_frames=f, num_inference_steps=steps,
+                    motion_bucket_id=v_args.motion_bucket_id, controlnet_cond_scale=v_args.cond_scale,
+                    seed=v_args.seed)
+
+    cases.append(("vipseg", inference.variant_of(v_args),
+                  lambda pipe: inference.vipseg_sample(pipe, image, control, v_args), vipseg_direct))
+    for label, variant, per_sample, call in cases:
+        t0 = time.perf_counter()
+        pipe = inference.build_pipeline(None, None, variant)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        outs, secs, launched = [], [], []
+        for fn in (per_sample, lambda p: call(p)[0]):
+            native.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(fn(pipe))
+            secs.append(time.perf_counter() - t0)
+            launched.append(dict(native.LAUNCHES))
+        out = outs[0]
+        ok = (np.array_equal(outs[0], outs[1]) and all(n == per_request for n in launched)
+              and bool(np.isfinite(out).all()) and 0.0 <= out.min() <= out.max() <= 1.0)
+        nonzero = {k: n for k, n in launched[0].items() if n}
+        say(f"  (c) inference driver {label} {'x'.join(map(str, out.shape[:3]))}, {steps} steps: build_pipeline "
+            f"{build_s:.2f} s; s/request {secs[0]:.3f} (per-sample function, captures its graph) / {secs[1]:.3f} "
+            f"(direct pipeline call, replays it); outputs bitwise equal {np.array_equal(outs[0], outs[1])}; "
+            f"launches a request {nonzero} (phase 4's {({k: n for k, n in per_request.items() if n})}) "
+            f"{'ok' if ok else 'FAIL'} on {card}")
+        if not ok:
+            fail(f"the inference driver's {label} render differs from a direct pipeline call or launched other "
+                 "kernels than phase 4's request")
+        del pipe, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6 and 8")
@@ -2281,6 +2771,15 @@ def main() -> None:
     direct_generate_check(torch, bundle, params, args.steps, 576, 1024, KernelConfig(), card, "default")
     direct_generate_check(torch, bundle, params, args.steps, 320, 576, KernelConfig(**UNFUSED), card, "un-fused")
     torch.cuda.empty_cache()
+
+    # Phase 10: the data layer, the training CLI's loop, the inference driver.
+    t0 = time.perf_counter()
+    say(f"phase 10: the data layer, the training CLI's loop and the inference driver on {card}")
+    import_check()
+    raster_check(torch, card)
+    train_cli_check(torch, _native, params, card, training_kernels)
+    driver_check(torch, _native, args.steps, {k: n // 2 for k, n in launches.items()}, card)
+    say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's.
     say("kernels: " + " ".join(f"{k}=pass" for k in _native.COUNTERS))

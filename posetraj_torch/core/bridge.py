@@ -12,6 +12,9 @@ Layout changes, made once here rather than on every call:
     it every step.
 Every other floating leaf is cast to `dtype`.
 
+`params_to_jax` is the exact inverse: the port's parameters back to a JAX
+package tree of float32 numpy arrays (the weight converter's input).
+
 Only the port's tests import the JAX package; this module takes plain arrays
 and imports nothing of it.
 """
@@ -73,5 +76,50 @@ def params_from_jax(tree, device="cpu", dtype: torch.dtype = torch.float32):
         if key == "mix_factor":
             return _tensor(node, device, torch.float32)
         return _tensor(node, device, dtype)
+
+    return walk(tree)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().to(device="cpu", dtype=torch.float32).numpy())
+
+
+def _layer_to_jax(node: dict) -> dict:
+    w = _np(node["weight"])
+    if w.ndim == 2:
+        k = w.T
+    elif w.ndim == 4:
+        k = w.transpose(2, 3, 1, 0)
+    elif w.ndim == 5:
+        k = w.transpose(2, 3, 4, 1, 0)
+    else:
+        raise ValueError(f"unexpected weight rank {w.ndim}")
+    out = {"kernel": np.ascontiguousarray(k)}
+    if "bias" in node:
+        out["bias"] = _np(node["bias"])
+    return out
+
+
+def params_to_jax(tree):
+    """The port's parameters -> a JAX package tree (float32 numpy), the
+    inverse of params_from_jax: `wqkv` split back into to_q/to_k/to_v, each
+    layout change undone, a norm's `weight` named `scale` again and a
+    layer's `kernel`. A node with a 1-D `weight` is a norm, any other
+    `weight` a linear or conv layer."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "wqkv" in node:
+                q, k, v = (np.ascontiguousarray(w.T) for w in np.split(_np(node["wqkv"]), 3, axis=0))
+                return {"to_q": {"kernel": q}, "to_k": {"kernel": k}, "to_v": {"kernel": v},
+                        "to_out": _layer_to_jax(node["to_out"])}
+            if "weight" in node:
+                if node["weight"].ndim == 1:
+                    return {"scale": _np(node["weight"]), "bias": _np(node["bias"])}
+                return _layer_to_jax(node)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _np(node)
 
     return walk(tree)

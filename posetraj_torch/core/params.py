@@ -38,6 +38,18 @@ def cast(tree, dtype: torch.dtype):
     return tree_map(lambda t: t.to(dtype), tree)
 
 
+def cast_like(tree, like):
+    """The tree with each leaf converted to the dtype of its counterpart in
+    `like`, a tree of the same structure whose leaves are tensors or
+    dtypes (e.g. float32 masters back to the layout core/init.py makes:
+    norms float32, the rest the compute dtype)."""
+    if isinstance(tree, dict):
+        return {k: cast_like(v, like[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_like(v, w) for v, w in zip(tree, like)]
+    return tree.to(getattr(like, "dtype", like))
+
+
 def flatten_dict(tree, prefix: str = "", sep: str = ".") -> Dict[str, torch.Tensor]:
     """Nested dict/list -> {"a.0.c": leaf}, for checkpoints and audits."""
     out = {}

@@ -9,8 +9,9 @@ step into its key, so a resumed run draws what an uninterrupted one draws;
 here the saved generator state does that. `keep_total_limit` removes the
 oldest checkpoints beyond that many (the reference's
 checkpoints_total_limit); `latest_checkpoint` serves
-`--resume_from_checkpoint latest`. The diffusers-layout export waits for
-the port's weight converter.
+`--resume_from_checkpoint latest`. `export_diffusers` writes a ControlNet
+(or any model) in the diffusers layout through the port's weight converter
+(tools/convert_weights.py), so reference tooling can load trained weights.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import re
 import shutil
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 STATE_FILE = "state.pt"
@@ -68,3 +70,23 @@ def restore_checkpoint(path: str, trainer) -> None:
     the save. Read to host memory first: the optimizer keeps its step
     counts there, and the tensors are copied into the trainer's own."""
     trainer.load_state_dict(load_checkpoint(path, map_location="cpu"))
+
+
+def export_diffusers(params, model: str, out_path: str) -> str:
+    """Write the port's parameters of `model` as a diffusers-layout
+    .safetensors (or, without safetensors, an .npz) of float32 arrays;
+    returns the path written (the suffix added)."""
+    from posetraj_torch.tools.convert_weights import params_to_diffusers
+
+    sd = params_to_diffusers(params, model)
+    try:
+        from safetensors.numpy import save_file
+    except ImportError:
+        if not out_path.endswith(".npz"):
+            out_path += ".npz"
+        np.savez(out_path, **sd)
+    else:
+        if not out_path.endswith(".safetensors"):
+            out_path += ".safetensors"
+        save_file(sd, out_path)
+    return out_path
