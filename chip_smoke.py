@@ -4,7 +4,7 @@ in PERF.md): the quickest proof that the port builds and runs on the card,
 for inference and for training.
 
     python3 chip_smoke.py            # every phase, as the checks run it
-    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6, 8 and 10(c)
+    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6, 8, 10(c) and 11
 
 Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
@@ -134,6 +134,28 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      vipseg_sample (base) at 14x320x576 with a host-library control, each
      bitwise a direct pipeline call and launching phase 4's kernels a
      request; s/request;
+ 11. single-video sharded serving (parallel/serve.py): (a) kernel A's
+     split form (statistics launch, the sums added across W blocks, apply
+     launch) on the two W halves, drawn apart, of (14, 72, 32, 320) and
+     (28, 72, 128, 320) bf16 +temb +SiLU and of (2, 14, 72, 128, 320) with
+     its per-frame addend, against the one-launch A and the plain version
+     (A's tolerance), which a half normalised by its own statistics must
+     fail; then stats and apply timed at the (2, 4)-local (14, 72, 32,
+     320) and the full shape (device time, and a call by CUDA events)
+     beside one-launch A, the plain versions, torch.var_mean /
+     F.group_norm and the bounds; (b) kernel 7 at the shapes of the
+     gathered K/V, q (14, 2304) / kv (14, 9216) and q (14, 576) / kv (14,
+     2304), and square at (28, 9216), against its plain version, beside
+     SDPA and the bound; (c) generate_sharded on a (1, 1) mesh through a
+     one-rank NCCL group at 14x576x1024, full width, CFG, two requests
+     (the loop eager): s/request beside phase 4's, each request's
+     launches, request 0's latents against generate() (graphed) under
+     KernelConfig(qkvt_attn=False, temporal_attn=False) with its launches,
+     within twice the spread of generate() itself from initial latents one
+     float32 ulp apart; (d) only on a host with
+     two cards: a (1, 2) mesh over NCCL, one process a card started by
+     torch.multiprocessing, and (2, 2) where there are four, against (1, 1), s/request of each (else "phase
+     11(d) not run: 1 device", not counted as passed);
   7. (printed last) a `kernels` summary, the JSON line of kernel numbers,
      and the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
@@ -171,6 +193,8 @@ L2_ROTATE = 4 * 50 * 2**20
 
 KERNEL_META = {
     "groupnorm": ("posetraj_torch/csrc/groupnorm.cu", "posetraj_tpu/ops/pallas_groupnorm.py:209"),
+    "gn_stats": ("posetraj_torch/csrc/groupnorm.cu", "posetraj_tpu/ops/pallas_groupnorm.py:133"),
+    "gn_apply": ("posetraj_torch/csrc/groupnorm.cu", "posetraj_tpu/ops/pallas_groupnorm.py:159"),
     "gemm": ("posetraj_torch/csrc/gemm.cuh", "posetraj_tpu/ops/pallas_qkvt.py:87"),
     "mlp": ("posetraj_torch/csrc/mlp.cu", "posetraj_tpu/ops/pallas_mlp.py:129"),
     "qkvt": ("posetraj_torch/csrc/qkvt.cu", "posetraj_tpu/ops/pallas_qkvt.py:367"),
@@ -226,11 +250,14 @@ def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PREROLL):  # spin kernels take the records a window may miss (profile_step)
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     total = sum((ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total)
-                for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.name)
+                for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.name
+                and "spin_kernel" not in ev.name)
     return total / calls / 1e3
 
 
@@ -2561,9 +2588,384 @@ def driver_check(torch, native, steps, per_request, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: single-video sharded serving (parallel/serve.py, spmd.py)
+# ---------------------------------------------------------------------------
+
+# Kernel A's split form at the flagship's level-0 resnet GroupNorm: (2, 4)
+# gives each rank (14, 72, 32, 320) of the (28, 72, 128, 320) activation.
+SPLIT_GN_SHAPES = (("(2,4)-local", (14, 72, 32, 320)), ("full", (28, 72, 128, 320)))
+# Kernel 7 where the sharded path runs it at 14x576x1024: rectangular on
+# K/V gathered over sp = 4 at levels 0 and 1 (rank-local B*F = 14 under
+# cfg = 2), square at level 0 on a (1, 1) mesh (C off under the context).
+GATHERED_FLASH = (("(2,4) level 0, K/V gathered", 14, 2304, 9216, 5),
+                  ("(2,4) level 1, K/V gathered", 14, 576, 2304, 10),
+                  ("(1,1) level 0, square", 28, 9216, 9216, 5))
+# The switches generate() runs with to launch what the sharded path does:
+# kernels C and D decline under a spatial-sharding context.
+SHARDED_AS = dict(qkvt_attn=False, temporal_attn=False)
+# generate_sharded on (1, 1) against generate() under SHARDED_AS: the two
+# differ only in the CFG combine's float32 rounding (sum_b coeff_b pred_b
+# against uncond + g (cond - uncond)), a last-bit change of each step's
+# noise prediction that the next step's bf16 input can round either way,
+# and the full-width model with peaked attention carries such a change on
+# through its steps. Its yardstick is measured in the same run: generate()
+# again with the initial latents moved by one float32 ulp (nextafter). The
+# sharded latents must lie within SHARDED_FLOOR_FACTOR times that floor
+# (or SHARDED_MIN_TOL, where the floor is below it) of generate()'s.
+SHARDED_FLOOR_FACTOR = 2.0
+SHARDED_MIN_TOL = 1e-3
+SHARDED_RANKS_TIMEOUT_S = 600
+
+
+def split_groupnorm_check(torch, groupnorm, card):
+    """Phase 11(a): kernel A's split form. Two W halves of (14, 72, 32, 320)
+    (the (2, 4)-local shape) and of (28, 72, 128, 320) bf16 (+ the per-sample
+    temb addend, SiLU), and of (2, 14, 72, 128, 320) with its per-frame
+    addend: statistics on each, the sums added on the card (what the
+    all-reduce of two ranks gives), apply on each; against the one-launch A
+    and the plain version at A's tolerance, the float64 sums against the
+    plain float32 statistics. The halves are drawn apart, so that a half
+    normalised by its own statistics (sums never reduced, or never read)
+    fails that tolerance: the check asserts it does. Then stats and apply
+    timed at the (2, 4)-local and the full shape beside one-launch A, the
+    plain versions, torch.var_mean / F.group_norm and the bounds: device
+    time from torch.profiler (the JSON rows, the (2, 4)-local shape), and a
+    call by CUDA events, which at the small shape is the wrapper's host
+    time. Returns the JSON rows."""
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1111)
+    tol = 2e-2  # A's (phase 2)
+
+    def inputs(shape, add_shape, apart=False):
+        c = shape[-1]
+        x = torch.randn(*shape, generator=g, device="cuda") + 0.5
+        if apart:
+            # The second W half x3 + 2: each half's own mean and variance
+            # are then far from the whole tensor's.
+            half = shape[-2] // 2
+            x.narrow(x.ndim - 2, half, half).mul_(3.0).add_(2.0)
+        return (x.to(bf), torch.rand(c, generator=g, device="cuda") + 0.5,
+                torch.randn(c, generator=g, device="cuda") * 0.1,
+                torch.randn(*add_shape, generator=g, device="cuda").to(bf))
+
+    say(f"phase 11: single-video sharded serving on {card}")
+    ok_all, errs = True, {"gn_stats": 0.0, "gn_apply": 0.0}
+    cases = [(shape, (shape[0], 320)) for _, shape in SPLIT_GN_SHAPES] + [((2, 14, 72, 128, 320), (2, 14, 320))]
+    for shape, add_shape in cases:
+        x, w, b, add = inputs(shape, add_shape, apart=True)
+        halves = [h.contiguous() for h in x.chunk(2, dim=x.ndim - 2)]
+        sums = sum(groupnorm.group_norm_stats_kernel(h, 32, add) for h in halves)
+        got = torch.cat([groupnorm.group_norm_apply_kernel(h, w, b, sums, 32, 1e-5, True, add, shards=2)
+                         for h in halves], dim=x.ndim - 2)
+        want_sums = groupnorm.group_norm_stats_plain(x, 32, add).double()
+        sums_err = float((sums - want_sums).abs().max() / want_sums.abs().max())
+        want = groupnorm.group_norm_plain(x, w, b, 32, 1e-5, True, add)
+        err_one, scale, rr_one, ok_one = compare(got, groupnorm.group_norm_kernel(x, w, b, 32, 1e-5, True, add), tol)
+        err_p, _, rr_p, ok_p = compare(got, want, tol)
+        # Each half by its own statistics: what a split form that lost the
+        # reduction gives. It must fail the tolerance, or the check is blind.
+        local = torch.cat([groupnorm.group_norm_apply_kernel(h, w, b, groupnorm.group_norm_stats_kernel(h, 32, add),
+                                                             32, 1e-5, True, add) for h in halves], dim=x.ndim - 2)
+        err_local, _, _, ok_local = compare(local, want, tol)
+        ok = ok_one and ok_p and sums_err <= 1e-4 and not ok_local
+        ok_all &= ok
+        errs["gn_stats"] = max(errs["gn_stats"], float((sums - want_sums).abs().max()))
+        errs["gn_apply"] = max(errs["gn_apply"], err_p)
+        say(f"  (a) split A {str(shape):22s} +temb{' per frame' if len(add_shape) == 3 else ''} +silu, two W halves "
+            f"(the second x3 + 2): vs one-launch A max_abs_err={err_one:.4g} rel_rms={rr_one:.3g}, vs plain "
+            f"max_abs_err={err_p:.4g} rel_rms={rr_p:.3g} (|ref|max {scale:.3g}, tol {tol:g}x); each half by its own "
+            f"statistics max_abs_err={err_local:.4g} (must fail the tol); sums vs plain float32 rel err "
+            f"{sums_err:.3g} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        del x, halves, got, add, local, want
+    rows = []
+    for label, shape in SPLIT_GN_SHAPES:
+        x, w, b, add = inputs(shape, (shape[0], 320))
+        n, s, c = shape[0], shape[1] * shape[2], shape[3]
+        sums = groupnorm.group_norm_stats_kernel(x, 32, add)
+        stats = lambda: groupnorm.group_norm_stats_kernel(x, 32, add)
+        apply = lambda: groupnorm.group_norm_apply_kernel(x, w, b, sums, 32, 1e-5, True, add)
+        both = lambda: groupnorm.group_norm(x, w, b, 32, 1e-5, True, add, lambda t: t, 1)
+        one = lambda: groupnorm.group_norm_kernel(x, w, b, 32, 1e-5, True, add)
+        plain_stats = lambda: groupnorm.group_norm_stats_plain(x, 32, add)
+        plain_apply = lambda: groupnorm.group_norm_apply_plain(x, w, b, sums, 32, 1e-5, True, add)
+        xv = x.view(n, s, 32, c // 32)
+        lib_stats = lambda: torch.var_mean(xv, dim=(1, 3))
+        xc, wb, bb = x.permute(0, 3, 1, 2), w.to(bf), b.to(bf)
+        lib_apply = lambda: F.group_norm(xc, 32, wb, bb, 1e-5)
+        # One rank's split form alone (one block, its own sums) is GroupNorm.
+        err, sc, _, ok = compare(apply(), groupnorm.group_norm_plain(x, w, b, 32, 1e-5, True, add), tol)
+        ok_all &= ok
+        dev = {k: profiled_kernel_ms(torch, fn, key, 10) for k, fn, key in (
+            ("stats", stats, "gn_stats"), ("apply", apply, "gn_apply"), ("both", both, ""), ("one", one, "gn_fused"),
+            ("plain_stats", plain_stats, ""), ("plain_apply", plain_apply, ""), ("lib_stats", lib_stats, ""),
+            ("lib_apply", lib_apply, ""))}
+        call = {k: cuda_ms(fn) for k, fn in (("stats", stats), ("apply", apply), ("both", both), ("one", one))}
+        el, sums_b = x.numel(), n * 64 * 8
+        bnd_s, by_s = bound_ms(2 * el + 2 * add.numel() + sums_b, 3.0 * el, FP32_FLOPS)
+        bnd_a, by_a = bound_ms(4 * el + 2 * add.numel() + sums_b + 8 * c, 10.0 * el, FP32_FLOPS)
+        bnd_one, _ = bound_ms(4 * el + 2 * add.numel(), 10.0 * el, FP32_FLOPS)
+        say(f"  (a) split A {label} {shape}, one block vs plain max_abs_err={err:.4g} (|ref|max {sc:.3g}, tol "
+            f"{tol:g}x) {'ok' if ok else 'FAIL'}; device ms: stats {dev['stats']:.4f} (bound {bnd_s:.4f} {by_s}, "
+            f"plain {dev['plain_stats']:.4f}, torch.var_mean {dev['lib_stats']:.4f}), apply {dev['apply']:.4f} "
+            f"(bound {bnd_a:.4f} {by_a}, plain {dev['plain_apply']:.4f}, F.group_norm {dev['lib_apply']:.4f}), "
+            f"stats + apply through the wrapper {dev['both']:.4f} (the sums' zero fill included) against one-launch "
+            f"A {dev['one']:.4f} (bound {bnd_one:.4f}); a call by CUDA events: stats {call['stats']:.4f}, apply "
+            f"{call['apply']:.4f}, through the wrapper {call['both']:.4f}, one-launch A {call['one']:.4f} on {card}")
+        if label == SPLIT_GN_SHAPES[0][0]:
+            rows.append(dict(name="gn_stats", max_abs_err=errs["gn_stats"], ms=dev["stats"], plain_ms=dev["plain_stats"],
+                             bound_ms=bnd_s, bound_by=by_s, library_ms=dev["lib_stats"]))
+            rows.append(dict(name="gn_apply", max_abs_err=errs["gn_apply"], ms=dev["apply"], plain_ms=dev["plain_apply"],
+                             bound_ms=bnd_a, bound_by=by_a, library_ms=dev["lib_apply"]))
+        del x, add, sums, xv, xc
+    torch.cuda.empty_cache()
+    if not ok_all:
+        fail("kernel A's split form disagrees with the one-launch A or its plain version, or the check cannot see "
+             "a half normalised by its own statistics")
+    return rows
+
+
+def gathered_flash_check(torch, flash, card):
+    """Phase 11(b): kernel 7 at the shapes the sharded path gives it: q a
+    view of the packed projection, k and v contiguous as the all-gather
+    leaves them; logits of sd sqrt(ln(Skv / 64)). Phase 2's kernel-7
+    tolerances; timed beside its plain version, SDPA and the bound."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2222)
+    tol, rms_tol = 3e-2, 1e-2
+    ok_all = True
+    for label, bsz, sq, skv, heads in GATHERED_FLASH:
+        c, d = heads * 64, 64
+        sigma = max(1.0, np.log(skv / 64)) ** 0.5
+        qkv = (torch.randn(bsz, sq, 3 * c, generator=g, device="cuda") * sigma**0.5).to(torch.bfloat16)
+        q = qkv[..., :c].unflatten(-1, (heads, d))
+        k = (torch.randn(bsz, skv, heads, d, generator=g, device="cuda") * sigma**0.5).to(torch.bfloat16)
+        v = torch.randn(bsz, skv, heads, d, generator=g, device="cuda").to(torch.bfloat16)
+        run_k = lambda: flash.flash_attention_tq(q, k, v, d**-0.5)
+        err, sc, rr, ok = compare(run_k(), flash.flash_attention_tq_plain(q, k, v, d**-0.5), tol, rms_tol=rms_tol)
+        ok_all &= ok
+        ms = cuda_ms(run_k)
+        plain = cuda_ms(lambda: flash.flash_attention_tq_plain(q, k, v, d**-0.5), reps=1, inner=1)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        bnd, by = bound_ms(2 * (2 * bsz * sq * c + 2 * bsz * skv * c), 4.0 * bsz * heads * sq * skv * d, BF16_FLOPS)
+        say(f"  (b) flash_tq {label}: (B,Sq,Skv,N,d)=({bsz},{sq},{skv},{heads},{d}) max_abs_err={err:.4g} "
+            f"(|ref|max {sc:.3g}, tol {tol:g}x) rel_rms={rr:.3g} (tol {rms_tol:g}) ms={ms:.4f} bound_ms={bnd:.4f} "
+            f"({by}, {bnd / ms:.0%} of it) sdpa_ms={lib:.4f} plain_ms={plain:.4f} {'ok' if ok else 'FAIL'} on {card}")
+        del qkv, q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    if not ok_all:
+        fail("kernel 7 disagrees with its plain version at a gathered shape")
+
+
+def sharded_request(torch, seed, height=576, width=1024):
+    """One request's inputs, the same on every device: numpy image and
+    control, noises from a CUDA generator."""
+    rng = np.random.RandomState(400 + seed)
+    image = rng.rand(1, height, width, 3).astype(np.float32)
+    control = rng.rand(1, 14, height, width, 3).astype(np.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(401 + seed)
+    noises = {"latents": torch.randn(1, 14, height // 8, width // 8, 4, generator=gen, device="cuda"),
+              "image_aug": torch.randn(1, height, width, 3, generator=gen, device="cuda")}
+    return image, control, noises
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_serving_check(torch, native, bundle, params, steps, per_request, card):
+    """Phase 11(c): generate_sharded on a (1, 1) mesh through a one-rank NCCL
+    group at 14x576x1024, full width, `steps` steps, CFG, two requests
+    (the loop eager), each request's launches; request 0's latents against
+    generate() (graphed) on the same inputs under SHARDED_AS, and both
+    requests' launches against it. Returns (the launches of both requests,
+    request 0's latents)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from posetraj_torch.configs import KernelConfig, PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.parallel import make_serve_mesh, serve
+    from posetraj_torch.pipeline import svd_controlnet as pipe_m
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_serve_mesh(1, 1)
+        pcfg = PipelineConfig(height=576, width=1024, num_frames=14, num_inference_steps=steps, decode_chunk_size=14)
+        sched = make_schedule(bundle.scheduler, steps)
+        latents = []
+
+        def keep(decode):
+            def wrapped(params_, bundle_, lat, *a, **k):
+                latents.append(lat.float().clone())
+                return decode(params_, bundle_, lat, *a, **k)
+            return wrapped
+
+        req_s, launches = [], []
+        with mock.patch.object(serve, "_decode_sharded", keep(serve._decode_sharded)):
+            for seed in (0, 1):
+                image, control, noises = sharded_request(torch, seed)
+                native.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frames = serve.generate_sharded(params, bundle, pcfg, image, control, noises, [[6.0, 128.0, 0.02]],
+                                                sched.sigmas, sched.timesteps, 14, mesh)
+                torch.cuda.synchronize()
+                req_s.append(time.perf_counter() - t0)
+                launches.append(dict(native.LAUNCHES))
+                if tuple(frames.shape) != (1, 14, 576, 1024, 3) or not bool(torch.isfinite(frames).all()) or \
+                        float(frames.min()) < 0.0 or float(frames.max()) > 1.0:
+                    fail(f"generate_sharded: frames {tuple(frames.shape)} not finite or outside [0, 1]")
+                del frames
+        image, control, noises = sharded_request(torch, 0)
+        ref_bundle = dataclasses.replace(bundle, kernels=KernelConfig(**SHARDED_AS))
+        nudged = dict(noises, latents=torch.nextafter(noises["latents"], torch.full_like(noises["latents"], np.inf)))
+        ref_s, ref_launches = [], []
+        with mock.patch.object(pipe_m, "decode_latents", keep(pipe_m.decode_latents)):
+            for inputs in (noises, nudged):  # the second call replays the first one's graph
+                native.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe_m.generate(params, ref_bundle, pcfg, image, control, inputs, [[6.0, 128.0, 0.02]],
+                                sched.sigmas, sched.timesteps, 14)
+                torch.cuda.synchronize()
+                ref_s.append(time.perf_counter() - t0)
+                ref_launches.append(dict(native.LAUNCHES))
+    finally:
+        dist.destroy_process_group()
+    sharded0, ref, ref_nudged = latents[0], latents[2], latents[3]
+    rel_rms = lambda a, b: float((a - b).norm() / b.norm())
+    rel, floor = rel_rms(sharded0, ref), rel_rms(ref_nudged, ref)
+    tol = max(SHARDED_FLOOR_FACTOR * floor, SHARDED_MIN_TOL)
+    nonzero = {k: n for k, n in launches[0].items() if n}
+    expected = ("groupnorm", "mlp", "flash_tq")
+    absent = ("qkvt", "temporal", "gemm", "frame_attn", "gn_stats", "gn_apply", "layernorm", "flash_fwd", "flash_bwd",
+              "flash_qkv")
+    ok = (rel <= tol and launches[0] == launches[1] == ref_launches[0]
+          and all(launches[0][k] > 0 for k in expected) and not any(launches[0][k] for k in absent))
+    say(f"  (c) generate_sharded, (1, 1) mesh over a one-rank NCCL group, 14x576x1024 CFG, {steps} steps, the loop "
+        f"eager: s/request={[round(x, 3) for x in req_s]} (phase 4's pipeline, default switches, graphed: "
+        f"{[round(x, 3) for x in per_request]}; generate() under "
+        f"{SHARDED_AS}, graphed: {ref_s[0]:.3f} first call, "
+        f"{ref_s[1]:.3f} replayed); latents vs that generate() rel_rms={rel:.4g} (tol {tol:.4g}: "
+        f"{SHARDED_FLOOR_FACTOR:g}x the floor {floor:.4g}, generate() with its initial latents one ulp apart, or "
+        f"{SHARDED_MIN_TOL:g}); launches a request {nonzero} (generate(): the same "
+        f"{launches[0] == ref_launches[0]}) {'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        fail("the (1, 1) sharded request disagrees with generate(), or launched other kernels than it")
+    return {k: launches[0][k] + launches[1][k] for k in launches[0]}, sharded0, tol
+
+
+def sharded_rank(rank, n_cfg, n_sp, port, steps, seed, out_dir) -> None:
+    """One rank of phase 11(d), a process that torch.multiprocessing starts:
+    generate_sharded on an (n_cfg, n_sp) mesh over NCCL on device `rank`,
+    request 0 twice; its latents (first request), launches (second) and
+    s/request to out_dir."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.ops import _native
+    from posetraj_torch.parallel import make_serve_mesh, serve
+    from posetraj_torch.pipeline import ModelBundle
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank, world_size=n_cfg * n_sp)
+    try:
+        bundle = ModelBundle()
+        params = make_params(torch, bundle, seed)
+        mesh = make_serve_mesh(n_cfg, n_sp)
+        pcfg = PipelineConfig(height=576, width=1024, num_frames=14, num_inference_steps=steps, decode_chunk_size=14)
+        sched = make_schedule(bundle.scheduler, steps)
+        image, control, noises = sharded_request(torch, 0)
+        latents, secs = [], []
+        decode = serve._decode_sharded
+
+        def keep(params_, bundle_, lat, *a, **k):
+            latents.append(lat.float().cpu())
+            return decode(params_, bundle_, lat, *a, **k)
+
+        with mock.patch.object(serve, "_decode_sharded", keep):
+            for _ in range(2):
+                _native.reset_launches()
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve.generate_sharded(params, bundle, pcfg, image, control, noises, [[6.0, 128.0, 0.02]],
+                                       sched.sigmas, sched.timesteps, 14, mesh)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        torch.save({"latents": latents[0], "launches": dict(_native.LAUNCHES), "s": secs},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def split_mesh_check(torch, steps, seed, ref_latents, tol, card):
+    """Phase 11(d), where the host has several cards: generate_sharded on a
+    (1, 2) mesh over NCCL, and on (2, 2) where there are four, one process
+    a card, request 0 twice, against the (1, 1) run's latents within
+    11(c)'s tolerance (the GroupNorm statistics, the gathered softmax and
+    the halo convolutions' cuDNN algorithms change last bits as the CFG
+    combine does there); s/request of each. The ranks are killed after
+    SHARDED_RANKS_TIMEOUT_S. Returns the launches of one request summed
+    over each mesh's ranks, or None where it did not run."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        say(f"  (d) phase 11(d) not run: {n_dev} device")
+        return None
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    total = None
+    for n_cfg, n_sp in [(1, 2)] + ([(2, 2)] if n_dev >= 4 else []):
+        world = n_cfg * n_sp
+        with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+            ranks = tmp.start_processes(sharded_rank, args=(n_cfg, n_sp, free_port(), steps, seed, d), nprocs=world,
+                                        join=False, start_method="spawn")
+            deadline = time.monotonic() + SHARDED_RANKS_TIMEOUT_S
+            try:
+                while not ranks.join(timeout=max(1.0, deadline - time.monotonic())):
+                    if time.monotonic() >= deadline:
+                        fail(f"phase 11(d): the ({n_cfg}, {n_sp}) mesh's ranks took over {SHARDED_RANKS_TIMEOUT_S} s")
+            except Exception as e:  # a rank raised or exited non-zero: the others are ended by join
+                fail(f"phase 11(d): a rank of the ({n_cfg}, {n_sp}) mesh failed: {e}")
+            finally:
+                for p in ranks.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            outs = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(world)]
+        rel = float((outs[0]["latents"].cuda() - ref_latents).norm() / ref_latents.norm())
+        same = all(torch.equal(o["latents"], outs[0]["latents"]) for o in outs)
+        launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+        ok = same and rel <= tol and launches["gn_stats"] > 0 and launches["gn_apply"] > 0
+        say(f"  (d) generate_sharded on a ({n_cfg}, {n_sp}) mesh over NCCL, {world} cards: latents vs (1, 1) "
+            f"rel_rms={rel:.4g} (tol {tol:.4g}), every rank's equal {same}; s/request (rank 0, the request twice) "
+            f"{[round(x, 3) for x in outs[0]['s']]}; launches of a request, summed over the ranks "
+            f"{ {k: n for k, n in launches.items() if n} } {'ok' if ok else 'FAIL'} on {card}")
+        if not ok:
+            fail(f"the ({n_cfg}, {n_sp}) sharded request disagrees with (1, 1), or missed kernel A's split form")
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6 and 8")
+    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6, 8, 10(c) and 11")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -2633,7 +3035,6 @@ def main() -> None:
     if not wide or wide != len(loads):
         fail("kernel 8's SASS has a global load narrower than 16 bytes, or none at all")
     say(f"phase 1: {torch.cuda.get_device_name(0)} | {card} | kernels built in {build_s:.1f} s")
-
     # Phase 2
     say("phase 2: kernels vs plain versions (bf16 unless stated)")
     rows, kernels_ok = check_kernels(torch, ops)
@@ -2781,13 +3182,45 @@ def main() -> None:
     driver_check(torch, _native, args.steps, {k: n // 2 for k, n in launches.items()}, card)
     say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
-    # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's.
-    say("kernels: " + " ".join(f"{k}=pass" for k in _native.COUNTERS))
+    # Phase 11: single-video sharded serving.
+    rows11, sharded = sharded_phase(torch, _native, groupnorm, flash, bundle, params, args, req_s, card)
+
+    # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's
+    # (A's split form phase 11's sharded requests).
     for r in rows:
-        src, replaces = KERNEL_META[r["name"]]
         name = r["name"]
-        n = launches[name] if name in inference_kernels else tl[name] if name in training_kernels else un[name]
-        r.update(route="cuda", source=src, replaces=replaces, launches=n)
+        r["launches"] = launches[name] if name in inference_kernels else tl[name] if name in training_kernels \
+            else un[name]
+    summary(torch, _native, rows + rows11, t_start)
+
+
+def sharded_phase(torch, native, groupnorm, flash, bundle, params, args, per_request, card):
+    """Phase 11; returns its JSON rows (A's split form) and the launches of
+    its sharded requests."""
+    t0 = time.perf_counter()
+    rows = split_groupnorm_check(torch, groupnorm, card)
+    gathered_flash_check(torch, flash, card)
+    sharded, lat11, tol11 = sharded_serving_check(torch, native, bundle, params, args.steps, per_request, card)
+    torch.cuda.empty_cache()
+    split = split_mesh_check(torch, args.steps, args.seed, lat11, tol11, card)
+    if split is not None:
+        sharded = {k: sharded[k] + split[k] for k in sharded}
+    say(f"  kernel A's split form on the sharded path: {sharded['gn_stats']} statistics and {sharded['gn_apply']} "
+        "apply launches (none on a (1, 1) mesh, where no GroupNorm's W is sharded: 11(a) holds the split form "
+        "alone; 11(d) runs it where the host has two cards)")
+    say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    for r in rows:
+        r["launches"] = sharded[r["name"]]
+    return rows, sharded
+
+
+def summary(torch, native, rows, t_start) -> None:
+    """Phase 7, printed last: the kernels line, the JSON line of kernel
+    numbers and the last line."""
+    say("kernels: " + " ".join(f"{k}=pass" for k in native.COUNTERS))
+    for r in rows:
+        r["source"], r["replaces"] = KERNEL_META[r["name"]]
+        r["route"] = "cuda"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     say(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -3,6 +3,8 @@
 //
 // Replaces posetraj_tpu/ops/pallas_groupnorm.py:fused_group_norm (its
 // _stats_kernel and _norm_kernel Pallas calls and the jnp combine between).
+// Its split form for W-sharded serving (the psum_axis path: statistics,
+// the caller's all-reduce, apply) is the second half of this file.
 //
 // Bound on the H100: bytes. Per element it does a handful of float
 // operations against one read and one write of the activation, far below the
@@ -78,6 +80,44 @@ struct Range {
   }
 };
 
+// Per-channel sums of v (one V-vector a thread (tx, ty), channels [col,
+// col + V) of rows ty, ty + ty_n, ...) reduced over ty in `red` (kThreads * V
+// floats of shared memory), then per group by `lanes` threads a group, added
+// in double to out[0 .. groups). Every thread of the CTA calls it.
+template <int V>
+__device__ __forceinline__ void block_group_sums(const float (&v)[V], double* out, float* red, bool active, int ty,
+                                                 int ty_n, int col, int c, int groups, int lanes) {
+  const int tid = threadIdx.x;
+  const int cg = c / groups;
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) red[ty * c + col + j] = v[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < c; i += kThreads) {
+    float t = red[i];
+    for (int r = 1; r < ty_n; ++r) t += red[r * c + i];
+    red[i] = t;
+  }
+  __syncthreads();
+  for (int gb = 0; gb < groups; gb += kThreads / lanes) {
+    const int g = gb + tid / lanes, j = tid % lanes;
+    float t = 0.f;
+    if (g < groups)
+      for (int i = j; i < cg; i += lanes) t += red[g * cg + i];
+    for (int o = lanes / 2; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (g < groups && j == 0) atomicAdd(out + g, static_cast<double>(t));
+  }
+  __syncthreads();
+}
+
+// Threads a group in block_group_sums: a power of two up to 32.
+__device__ __forceinline__ int group_lanes(int groups) {
+  int lanes = 32;
+  while (lanes > 1 && lanes * groups > kThreads) lanes >>= 1;
+  return lanes;
+}
+
 // x, y: (n, s, c); add: (n, add_frames, c) or null (row r of a sample takes
 // frame r / (s / add_frames)); sums_buf: (teams, 3, 2, groups) float64 and
 // counters: [arrivals, CTAs done] per team, both zero between calls. CTAs
@@ -126,9 +166,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned* bar_count = counters + 2 * team;
   unsigned* bar_done = bar_count + 1;
   double* team_sums = sums_buf + static_cast<int64_t>(team) * 6 * groups;
-  // Group sums: `lanes` threads per group, a power of two up to 32.
-  int lanes = 32;
-  while (lanes > 1 && lanes * groups > kThreads) lanes >>= 1;
+  const int lanes = group_lanes(groups);
 
   if (tid == 0) {
     for (int i = 0; i < kSlots; ++i) mbar_init(&full[i], 1);
@@ -143,29 +181,8 @@ __global__ void __launch_bounds__(kThreads, 2)
               rg.piece_len(p) * row_bytes, &full[issued % kSlots]);
     ++issued;
   };
-  // Per-channel sums of v (one V-vector a thread) reduced over ty in `red`,
-  // then per group, added in double to the team's out[0 .. groups).
   auto group_sums = [&](const float (&v)[V], double* out) {
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) red[ty * c + col + j] = v[j];
-    }
-    __syncthreads();
-    for (int i = tid; i < c; i += kThreads) {
-      float t = red[i];
-      for (int r = 1; r < ty_n; ++r) t += red[r * c + i];
-      red[i] = t;
-    }
-    __syncthreads();
-    for (int gb = 0; gb < groups; gb += kThreads / lanes) {
-      const int g = gb + tid / lanes, j = tid % lanes;
-      float t = 0.f;
-      if (g < groups)
-        for (int i = j; i < cg; i += lanes) t += red[g * cg + i];
-      for (int o = lanes / 2; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-      if (g < groups && j == 0) atomicAdd(out + g, static_cast<double>(t));
-    }
-    __syncthreads();
+    block_group_sums<V>(v, out, red, active, ty, ty_n, col, c, groups, lanes);
   };
 
   int iter = 0;
@@ -340,6 +357,148 @@ int run(const void* x, const float* gamma, const float* beta, const void* add, d
                                                       dim3(kThreads), args, smem, stream));
 }
 
+// ---------------------------------------------------------------------------
+// The split form: statistics and apply as two launches, for W-sharded
+// serving, where each rank holds a W block of every sample and the caller
+// sums the statistics over the ranks (one all-reduce) between the two. It
+// replaces the _stats_kernel and _norm_kernel Pallas calls of
+// fused_group_norm(psum_axis=...) (pallas_groupnorm.py:133, :159) and the
+// psum between them. Bound on the H100: bytes, as the one launch. Plain
+// 16-byte loads and stores, no team barrier (the caller's collective sits
+// between the two launches): the apply launch reads x again (from L2 where
+// the rank's activation fits it), so HBM sees three passes where the one
+// launch has two.
+// ---------------------------------------------------------------------------
+
+// Per-(sample, group) [sum, sum of squares] of x + add into sums (n, 2 *
+// groups) float64, zero before the launch. Grid (blocks, n): CTA (b, smp)
+// reduces rows [b s / blocks, (b + 1) s / blocks) of sample smp as phase 1
+// of gn_fused does (the addend folded in), then adds its group partials.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gn_stats(const T* __restrict__ x, const T* __restrict__ add, double* __restrict__ sums, int s, int c, int groups,
+             int add_frames) {
+  constexpr int V = Vec16<T>::N;
+  __shared__ float red[kThreads * V];
+  const int smp = blockIdx.y;
+  const int row0 = static_cast<int>(static_cast<int64_t>(blockIdx.x) * s / gridDim.x);
+  const int row1 = static_cast<int>(static_cast<int64_t>(blockIdx.x + 1) * s / gridDim.x);
+  const int chunks = c / V;
+  const int ty_n = kThreads / chunks;
+  const int tx = threadIdx.x % chunks, ty = threadIdx.x / chunks;
+  const bool active = ty < ty_n;
+  const int col = tx * V;
+  const int rows_per_frame = s / add_frames;
+  const T* xs = x + static_cast<int64_t>(smp) * s * c;
+  const T* as = add != nullptr ? add + static_cast<int64_t>(smp) * add_frames * c : nullptr;
+  float acc[V], acc2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = acc2[j] = 0.f;
+  if (active) {
+#pragma unroll 4
+    for (int r = row0 + ty; r < row1; r += ty_n) {
+      const Vec16<T> v = load16(xs + static_cast<int64_t>(r) * c + col);
+      Vec16<T> a{};
+      if (as != nullptr) a = load16(as + static_cast<int64_t>(r / rows_per_frame) * c + col);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float val = as != nullptr ? v.get(j) + a.get(j) : v.get(j);
+        acc[j] += val;
+        acc2[j] += val * val;
+      }
+    }
+  }
+  double* out = sums + static_cast<int64_t>(smp) * 2 * groups;
+  const int lanes = group_lanes(groups);
+  block_group_sums<V>(acc, out, red, active, ty, ty_n, col, c, groups, lanes);
+  block_group_sums<V>(acc2, out + groups, red, active, ty, ty_n, col, c, groups, lanes);
+}
+
+// y = (x + add) * w_c + b_c [, SiLU] from the summed statistics: mean and
+// rstd of each group over `count` elements (s * c / groups a rank times the
+// ranks), folded with gamma and beta into per-channel scale and shift as
+// phases 2 and 3 of gn_fused do. Grid (blocks, n) as gn_stats; dynamic
+// shared memory 2 * groups floats.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gn_apply(const T* __restrict__ x, const T* __restrict__ add, const float* __restrict__ gamma,
+             const float* __restrict__ beta, const double* __restrict__ sums, T* __restrict__ y, int s, int c,
+             int groups, int add_frames, double count, float eps, int act) {
+  constexpr int V = Vec16<T>::N;
+  extern __shared__ float stat[];  // mean[groups], rstd[groups]
+  const int smp = blockIdx.y;
+  const double* ss = sums + static_cast<int64_t>(smp) * 2 * groups;
+  for (int g = threadIdx.x; g < groups; g += kThreads) {
+    const double m = ss[g] / count;
+    const double var = fmax(ss[groups + g] / count - m * m, 0.0);
+    stat[g] = static_cast<float>(m);
+    stat[groups + g] = rsqrtf(static_cast<float>(var) + eps);
+  }
+  __syncthreads();
+  const int row0 = static_cast<int>(static_cast<int64_t>(blockIdx.x) * s / gridDim.x);
+  const int row1 = static_cast<int>(static_cast<int64_t>(blockIdx.x + 1) * s / gridDim.x);
+  const int chunks = c / V;
+  const int ty_n = kThreads / chunks;
+  const int tx = threadIdx.x % chunks, ty = threadIdx.x / chunks;
+  if (ty >= ty_n) return;
+  const int col = tx * V;
+  const int cg = c / groups;
+  const int rows_per_frame = s / add_frames;
+  const T* xs = x + static_cast<int64_t>(smp) * s * c;
+  T* ys = y + static_cast<int64_t>(smp) * s * c;
+  const T* as = add != nullptr ? add + static_cast<int64_t>(smp) * add_frames * c : nullptr;
+  float w[V], b[V];
+  const Vec16<T> a0 = as != nullptr && add_frames == 1 ? load16(as + col) : Vec16<T>{};
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int g = (col + j) / cg;
+    w[j] = stat[groups + g] * gamma[col + j];
+    b[j] = beta[col + j] - stat[g] * w[j];
+    if (as != nullptr && add_frames == 1) b[j] = fmaf(a0.get(j), w[j], b[j]);  // the per-sample addend
+  }
+  const bool per_frame = as != nullptr && add_frames > 1;
+#pragma unroll 4
+  for (int r = row0 + ty; r < row1; r += ty_n) {
+    const int64_t off = static_cast<int64_t>(r) * c + col;
+    const Vec16<T> v = load16(xs + off);
+    Vec16<T> o;
+    if (per_frame) {
+      const Vec16<T> a = load16(as + static_cast<int64_t>(r / rows_per_frame) * c + col);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = (v.get(j) + a.get(j)) * w[j] + b[j];
+        o.set(j, act ? silu<T>(t) : t);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = fmaf(v.get(j), w[j], b[j]);
+        o.set(j, act ? silu<T>(t) : t);
+      }
+    }
+    store16(ys + off, o);
+  }
+}
+
+template <typename T>
+int run_stats(const void* x, const void* add, double* sums, int n, int s, int c, int groups, int add_frames,
+              int blocks, cudaStream_t stream) {
+  gn_stats<T><<<dim3(blocks, n), kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(add), sums,
+                                                         s, c, groups, add_frames);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_apply(const void* x, const float* gamma, const float* beta, const void* add, const double* sums, void* y,
+              int n, int s, int c, int groups, int add_frames, double count, float eps, int act, int blocks,
+              cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(groups) * sizeof(float);
+  gn_apply<T><<<dim3(blocks, n), kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(add),
+                                                            gamma, beta, sums, static_cast<T*>(y), s, c, groups,
+                                                            add_frames, count, eps, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y: (n, s, c) channels-last; gamma, beta: (c,) float32; add: (n,
@@ -355,4 +514,28 @@ PT_EXPORT int pt_group_norm(const void* x, const float* gamma, const float* beta
   if (is_bf16)
     return run<bf16>(x, gamma, beta, add, sums, counters, y, ni, si, c, groups, add_frames, eps, act, grid, teams, st);
   return run<float>(x, gamma, beta, add, sums, counters, y, ni, si, c, groups, add_frames, eps, act, grid, teams, st);
+}
+
+// The split form's statistics: x (n, s, c), add (n, add_frames, c) or null
+// -> sums (n, 2 * groups) float64 [sum | sum of squares], zeroed by the
+// caller. A grid of (blocks, n) CTAs of 512 threads.
+PT_EXPORT int pt_group_norm_stats(const void* x, const void* add, double* sums, long long n, long long s, int c,
+                                  int groups, int add_frames, int is_bf16, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ni = static_cast<int>(n), si = static_cast<int>(s);
+  if (is_bf16) return run_stats<bf16>(x, add, sums, ni, si, c, groups, add_frames, blocks, st);
+  return run_stats<float>(x, add, sums, ni, si, c, groups, add_frames, blocks, st);
+}
+
+// The split form's apply: y = GroupNorm(x + add) [, SiLU] with the summed
+// statistics `sums` (n, 2 * groups) float64 over `count` elements a group.
+PT_EXPORT int pt_group_norm_apply(const void* x, const float* gamma, const float* beta, const void* add,
+                                  const double* sums, void* y, long long n, long long s, int c, int groups,
+                                  int add_frames, double count, float eps, int act, int is_bf16, int blocks,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ni = static_cast<int>(n), si = static_cast<int>(s);
+  if (is_bf16)
+    return run_apply<bf16>(x, gamma, beta, add, sums, y, ni, si, c, groups, add_frames, count, eps, act, blocks, st);
+  return run_apply<float>(x, gamma, beta, add, sums, y, ni, si, c, groups, add_frames, count, eps, act, blocks, st);
 }

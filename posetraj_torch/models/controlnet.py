@@ -17,6 +17,7 @@ from posetraj_torch.models.embeddings import init_timestep_embedding
 from posetraj_torch.models.transformer import basic_transformer_block, init_basic_transformer_block
 from posetraj_torch.models.unet import compute_embeddings
 from posetraj_torch.ops.primitives import conv2d, group_norm, linear, silu
+from posetraj_torch.parallel import spmd
 
 
 def _init_conv_stack(ini: Init, cfg: HintEncoderConfig) -> dict:
@@ -109,14 +110,18 @@ def hint_encoder(params: dict, cfg: HintEncoderConfig, cond: torch.Tensor, num_f
     elif cfg.variant == "temp":
         # A transformer over the frames of each pixel, with a residual around
         # it. The GroupNorm's statistics span a whole video, (F, H, W) and
-        # the group's channels, as torch's GroupNorm on (B, C, F, H, W).
+        # the group's channels, as torch's GroupNorm on (B, C, F, H, W) (and
+        # over every sp rank's W block under sharded serving).
         n, eh, ew, ec = emb.shape
         t = params["temp"]
-        h = group_norm(t["norm"], emb.reshape(b, f * eh * ew, ec), eps=1e-6)
+        h = group_norm(t["norm"], emb.reshape(b, f, eh, ew, ec), eps=1e-6)
         h = h.reshape(b, f, eh * ew, ec).transpose(1, 2).reshape(b * eh * ew, f, ec)
         h = linear(t["proj_in"], h, compute_dtype)
-        for blk in t["blocks"]:
-            h = basic_transformer_block(blk, h, cfg.temp_num_heads, backend="xla", compute_dtype=compute_dtype)
+        # The token axis here is frames (the pixels sit in the batch): under
+        # sharded serving no op may treat it as a W block.
+        with spmd.local_tokens():
+            for blk in t["blocks"]:
+                h = basic_transformer_block(blk, h, cfg.temp_num_heads, backend="xla", compute_dtype=compute_dtype)
         h = linear(t["proj_out"], h, compute_dtype)
         emb = emb + h.reshape(b, eh * ew, f, ec).transpose(1, 2).reshape(n, eh, ew, ec)
     elif cfg.variant != "base":

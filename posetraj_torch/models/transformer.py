@@ -22,6 +22,10 @@ dispatch under the active KernelConfig (configs.kernel_config):
 Quirk Q7 (diffusers 0.24.0): the temporal cross-attention context is built
 sequence-major while the hidden rows are batch-major, so for the CFG batch of
 2 the cond/uncond contexts interleave across pixels; reproduced here.
+
+Under sharded serving (parallel/spmd.py) kernels C and D decline, spatial
+self-attention gathers K/V over sp, and the Q7 index uses global batch rows
+and pixel positions.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from posetraj_torch.models.resnet import alpha_blend
 from posetraj_torch.ops import mlp, qkvt, temporal
 from posetraj_torch.ops.attention import attention, self_attention_qkv
 from posetraj_torch.ops.primitives import geglu, group_norm_silu, layer_norm, linear
+from posetraj_torch.parallel import spmd
 
 
 def init_attention(ini: Init, query_dim: int, heads: int, cross_attention_dim: Optional[int] = None) -> dict:
@@ -59,10 +64,17 @@ def init_attention(ini: Init, query_dim: int, heads: int, cross_attention_dim: O
 def attention_module(params: dict, x: torch.Tensor, num_heads: int, compute_dtype=None) -> torch.Tensor:
     """Self-attention of (B, S, C) x: the packed projection x Wqkv^T (a
     plain matmul, as the JAX package leaves it to XLA), self_attention_qkv,
-    to_out."""
+    to_out. Where the spatial context shards the tokens, the split q, k, v
+    go to attention(), which all-gathers k and v over sp."""
     dt = compute_dtype or x.dtype
     qkv = linear({"weight": params["wqkv"]}, x, dt)
-    return linear(params["to_out"], self_attention_qkv(qkv, num_heads), compute_dtype)
+    ctx = spmd.current()
+    if ctx is not None and ctx.tokens_sharded(x.shape[1]):
+        q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+        out = attention(q, k, v, num_heads, gather_kv=ctx)
+    else:
+        out = self_attention_qkv(qkv, num_heads)
+    return linear(params["to_out"], out, compute_dtype)
 
 
 def cross_attention(params: dict, x: torch.Tensor, context: torch.Tensor, num_heads: int,
@@ -140,7 +152,10 @@ def basic_transformer_block(params: dict, x: torch.Tensor, num_heads: int, conte
         raise ValueError(f"basic_transformer_block: backend must be 'auto' or 'xla', got {backend!r}")
     dt = compute_dtype or x.dtype
     a1 = params["attn1"]
-    if backend == "auto" and qkvt.attn_sublayer_applicable(x, num_heads, a1["wqkv"], a1["to_out"]["weight"]):
+    # Sharded serving gathers K/V inside attention(): kernel C declines
+    # under an active spatial context, as in the JAX package.
+    if (backend == "auto" and spmd.current() is None
+            and qkvt.attn_sublayer_applicable(x, num_heads, a1["wqkv"], a1["to_out"]["weight"])):
         x = qkvt.attn_sublayer(
             x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
             a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
@@ -212,7 +227,8 @@ def temporal_basic_transformer_block(params: dict, x: torch.Tensor, num_frames: 
     x = feed_forward(params["ff_in"], x, params["norm_in"],
                      add.reshape(b, num_frames, 1, c) if add is not None else None, compute_dtype)
     a1 = params["attn1"]
-    if temporal.temporal_attn_sublayer_applicable(x, num_heads, a1["wqkv"], a1["to_out"]["weight"]):
+    if spmd.current() is None and temporal.temporal_attn_sublayer_applicable(x, num_heads, a1["wqkv"],
+                                                                              a1["to_out"]["weight"]):
         x = temporal.temporal_attn_sublayer(
             x.to(dt).contiguous(), params["norm1"]["weight"], params["norm1"]["bias"], a1["wqkv"].to(dt),
             a1["to_out"]["weight"].to(dt), a1["to_out"]["bias"].to(dt), num_heads,
@@ -257,10 +273,21 @@ def transformer_spatio_temporal(params: dict, x: torch.Tensor, context: torch.Te
     s = hh * ww
     ctx_first = context.reshape(b, num_frames, -1, context.shape[-1])[:, 0]  # (B, 1, D)
     if fidelity_time_context_order:
-        # Q7: pixel (b, s) reads context row (b*S + s) % B.
-        ar_b = torch.arange(b, device=x.device)[:, None]
-        ar_s = torch.arange(s, device=x.device)[None, :]
-        time_context = ctx_first[(ar_b * s + ar_s) % b]  # (B, S, 1, D)
+        # Q7: pixel (b, s) reads context row (b*S + s) % B. Under sharded
+        # serving the batch rows (cfg) and the pixels (sp) are blocks of
+        # global extents: the index takes global batch rows and pixel
+        # positions, and the table is the (B, 1, D) rows of every cfg rank.
+        ctx_sp = spmd.current()
+        sp_here = ctx_sp is not None and ctx_sp.w_sharded_at(hh)
+        table, b_ids, b_glob = ctx_first, torch.arange(b, device=x.device), b
+        col, w_glob = torch.arange(ww, device=x.device), ww
+        if ctx_sp is not None and ctx_sp.cfg_size > 1:
+            table = spmd.all_gather_cfg(ctx_first, ctx_sp)
+            b_ids, b_glob = b_ids + ctx_sp.mesh.cfg_rank * b, b * ctx_sp.cfg_size
+        if sp_here:
+            col, w_glob = col + ctx_sp.mesh.sp_rank * ww, ww * ctx_sp.sp_size
+        s_glob = (torch.arange(hh, device=x.device)[:, None] * w_glob + col[None, :]).reshape(-1)  # (S,)
+        time_context = table[(b_ids[:, None] * (hh * w_glob) + s_glob[None, :]) % b_glob]  # (B, S, 1, D)
         time_context = time_context.permute(0, 2, 1, 3)  # (B, 1, S, D)
     else:
         time_context = ctx_first[:, :, None, :].expand(b, 1, s, ctx_first.shape[-1])

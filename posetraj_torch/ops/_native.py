@@ -10,7 +10,8 @@ Every wrapper counts its launches in `LAUNCHES[name]`: one per call that
 launched its kernel on the card, none for a call that ran the plain version.
 The flash library serves four counters: kernel 5's forward and backward
 (`flash_fwd`, `flash_bwd`), kernel 6 (`flash_qkv`) and kernel 7
-(`flash_tq`). The GEMM of gemm.cuh counts under `gemm` where kernels C and D
+(`flash_tq`); the groupnorm library serves kernel A's one launch
+(`groupnorm`) and its split form's two (`gn_stats`, `gn_apply`). The GEMM of gemm.cuh counts under `gemm` where kernels C and D
 launch it (two launches a call) and where ops/gemm.py launches it alone; D's
 frame attention counts under `frame_attn` in each D call and where
 ops/temporal.frame_attention_kernel launches it alone.
@@ -41,8 +42,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("groupnorm", "mlp", "qkvt", "temporal", "flash", "layernorm")
-COUNTERS = ("groupnorm", "mlp", "qkvt", "temporal", "gemm", "frame_attn", "flash_fwd", "flash_bwd", "flash_qkv",
-            "flash_tq", "layernorm")
+COUNTERS = ("groupnorm", "gn_stats", "gn_apply", "mlp", "qkvt", "temporal", "gemm", "frame_attn", "flash_fwd",
+            "flash_bwd", "flash_qkv", "flash_tq", "layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -150,6 +151,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 Fl = ctypes.c_float
+D = ctypes.c_double
 LP = ctypes.POINTER(ctypes.c_longlong)
 
 

@@ -11,6 +11,11 @@ un-fused spatial self-attention takes (KernelConfig.qkvt_attn off).
 Everything else, and every CPU tensor, takes the plain float32-softmax
 `dot_product_attention` (port of _xla_attention): CLIP (S = 257), the VAE's
 single-head attention (head_dim 512), cross-attention (one key) and S < 512.
+
+W-sharded serving (parallel/spmd.py) passes `gather_kv=ctx`: k and v hold
+this rank's block of the tokens and are all-gathered over sp, while q stays
+local, so kernel 7 runs rectangular (S/sp queries against S keys). Softmax
+over the keys does not depend on their order.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional
 import torch
 
 from posetraj_torch.ops import flash
+from posetraj_torch.parallel import spmd
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -45,8 +51,11 @@ def self_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: Optional[float]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-              scale: Optional[float] = None) -> torch.Tensor:
-    """Multi-head attention over flat (B, S, D) q and (B, S_kv, D) k/v."""
+              scale: Optional[float] = None, gather_kv: Optional[spmd.SpmdCtx] = None) -> torch.Tensor:
+    """Multi-head attention over flat (B, S, D) q and (B, S_kv, D) k/v; with
+    `gather_kv`, k and v are first all-gathered over its sp axis."""
+    if gather_kv is not None:
+        k, v = spmd.all_gather_tokens(k, gather_kv), spmd.all_gather_tokens(v, gather_kv)
     b, sq, d = q.shape
     skv = k.shape[1]
     hd = d // num_heads

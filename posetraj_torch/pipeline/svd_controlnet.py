@@ -387,8 +387,20 @@ class SVDControlNetPipeline:
     loop's CUDA graph: a later request of the same shapes, parameters and
     switches replays it without capturing anew."""
 
-    def __init__(self, params: Dict, bundle: ModelBundle = ModelBundle(), device=None, compute_dtype=None):
-        self.device = resolve_device(device)
+    def __init__(self, params: Dict, bundle: ModelBundle = ModelBundle(), device=None, compute_dtype=None,
+                 mesh=None, serve_mesh=None):
+        """serve_mesh: a ("cfg", "sp") parallel.spmd.ServeMesh
+        (parallel/serve.make_serve_mesh) for single-video sharded serving:
+        batch-1 calls run parallel/serve.generate_sharded on it, on its
+        device. mesh (batched data / tensor parallelism) is not in the port
+        yet and raises; the two cannot be combined."""
+        if mesh is not None and serve_mesh is not None:
+            raise ValueError("mesh (batched) and serve_mesh (single-video) are mutually exclusive")
+        if mesh is not None:
+            raise NotImplementedError("SVDControlNetPipeline(mesh=...): the parallel layer's data- and "
+                                      "tensor-parallel mesh (parallel/mesh.py) is not in the port yet")
+        self.serve_mesh = serve_mesh
+        self.device = serve_mesh.device if serve_mesh is not None else resolve_device(device)
         self.params = params
         self.bundle = bundle
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
@@ -422,11 +434,17 @@ class SVDControlNetPipeline:
             }
         sched = make_schedule(self.bundle.scheduler, num_inference_steps)
         time_ids = np.tile(added_time_ids_inference(pcfg), (b, 1))
-        frames = generate(self.params, self.bundle, pcfg, image, control, noises, time_ids, sched.sigmas,
-                          sched.timesteps, num_frames, camera_cond=camera_cond,
-                          bbox_cond=None if bbox_condition is None else _to_float_array(bbox_condition),
-                          rot_id=rot_id, output_latent=(output_type == "latent"), device=self.device,
-                          compute_dtype=self.compute_dtype, graph=self.graph)
+        args = (self.params, self.bundle, pcfg, image, control, noises, time_ids, sched.sigmas, sched.timesteps,
+                num_frames)
+        kw = dict(camera_cond=camera_cond, rot_id=rot_id, output_latent=(output_type == "latent"),
+                  bbox_cond=None if bbox_condition is None else _to_float_array(bbox_condition),
+                  compute_dtype=self.compute_dtype)
+        if self.serve_mesh is not None and b == 1:
+            from posetraj_torch.parallel.serve import generate_sharded
+
+            frames = generate_sharded(*args, self.serve_mesh, **kw)
+        else:
+            frames = generate(*args, device=self.device, graph=self.graph, **kw)
         return self._postprocess(frames.cpu().numpy(), output_type)
 
     @staticmethod

@@ -17,9 +17,10 @@ parameter audit (train...blender_14.py:1029-1038), metrics JSONL
 (+TensorBoard), validation side-by-side GIFs every --validation_steps
 (:1418-1495).
 
-One device: `cuda`, or the CPU with --platform cpu. The port has no parallel
-layer yet (ROADMAP.md, queue 1 item 6), so --distributed and
---n_model_shards > 1 raise NotImplementedError.
+One device: `cuda`, or the CPU with --platform cpu. The parallel layer's
+data- and tensor-parallel mesh (the JAX package's parallel/mesh.py) is not
+in the port yet, so --distributed and --n_model_shards > 1 raise
+NotImplementedError.
 
 `main` builds the trainer and the datasets; `train_loop` runs the epochs
 (loading, steps, logging, checkpoints, exports, validation renders) and can
@@ -31,8 +32,8 @@ from __future__ import annotations
 import argparse
 import os
 
-NO_PARALLEL = ("the port has no parallel layer yet (ROADMAP.md, queue 1 item 6): "
-               "the training CLI runs on one device")
+NO_PARALLEL = ("the parallel layer's data- and tensor-parallel mesh (parallel/mesh.py) is not in the port "
+               "yet: the training CLI runs on one device")
 
 
 def parse_args(argv=None):

@@ -547,7 +547,8 @@ class Trainer:
     def __init__(self, bundle, tcfg: TrainConfig, frozen_params: Dict, controlnet_params: Dict, mesh=None,
                  device=None, compute_dtype=None):
         if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): the parallel layer is not in the port yet")
+            raise NotImplementedError("Trainer(mesh=...): the parallel layer's data- and tensor-parallel mesh "
+                                      "(parallel/mesh.py) is not in the port yet")
         _check_supported(tcfg)
         self.device = resolve_device(device)
         bundle = resolve_kernels(bundle)

@@ -30,7 +30,12 @@ M, N and K, takes B's tolerances. D's frame attention alone takes D's
 tolerances; blocks whose gates decline C and D are held to the step's
 (3e-2 relative RMS of the all-plain block: bf16 roundings along a block).
 The temp hint encoder (A, then B in each of its blocks) is held to B's
-tolerances on its branch, the output minus the conv stack's.
+tolerances on its branch, the output minus the conv stack's. Kernel A's
+split form (the statistics of two W blocks summed, then the apply of each)
+takes A's tolerance, its float64 sums within 1e-4 of the plain float32
+statistics; generate_sharded on a (1, 1) mesh launches what generate()
+launches with C and D off and lands within 2e-2 relative RMS of its
+latents.
 """
 
 import math
@@ -464,6 +469,50 @@ def test_cuda_group_norm_schedules(shape, add_shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,add_shape,dtype", GN_CASES)
+def test_cuda_group_norm_split_form(shape, add_shape, dtype):
+    """Kernel A's split form (statistics launch, sums added across blocks,
+    apply launch) over the two W halves of x, as two sp ranks run it,
+    against the plain version of the unsplit GroupNorm; its float64 sums
+    against the plain float32 statistics. The halves are drawn apart (the
+    second x3 + 2), so that a half normalised by its own statistics fails
+    A's tolerance, which is asserted too. One launch of each a call; the
+    wrapper's split form with one block launches both."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + 1)
+    c = shape[-1]
+    w_axis = len(shape) - 2
+    x = torch.randn(*shape, generator=g, device="cuda") + 0.5
+    x = x.narrow(w_axis, 0, x.shape[w_axis] // 2 * 2).contiguous()  # two equal W blocks
+    half = x.shape[w_axis] // 2
+    x.narrow(w_axis, half, half).mul_(3.0).add_(2.0)
+    x = x.to(dtype)
+    w = torch.rand(c, generator=g, device="cuda") + 0.5
+    b = torch.randn(c, generator=g, device="cuda") * 0.1
+    add = torch.randn(*add_shape, generator=g, device="cuda").to(dtype) if add_shape else None
+    halves = [h.contiguous() for h in x.chunk(2, dim=w_axis)]
+    _native.reset_launches()
+    sums = sum(groupnorm.group_norm_stats_kernel(h, 32, add) for h in halves)
+    got = torch.cat([groupnorm.group_norm_apply_kernel(h, w, b, sums, 32, 1e-6, True, add, shards=2)
+                     for h in halves], dim=w_axis)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["gn_stats"] == 2 and _native.LAUNCHES["gn_apply"] == 2
+    assert _native.LAUNCHES["groupnorm"] == 0
+    want_sums = groupnorm.group_norm_stats_plain(x, 32, add).double()
+    assert torch.allclose(sums, want_sums, rtol=1e-4, atol=1e-4 * float(want_sums.abs().max()))
+    want = groupnorm.group_norm_plain(x, w, b, 32, 1e-6, True, add)
+    _check(got, want, 2e-2)
+    local = torch.cat([groupnorm.group_norm_apply_kernel(h, w, b, groupnorm.group_norm_stats_kernel(h, 32, add),
+                                                         32, 1e-6, True, add) for h in halves], dim=w_axis)
+    assert float((local.float() - want.float()).abs().max()) > 2e-2 * float(want.float().abs().max())
+    # The wrapper's split form with one block (reduce the identity): stats, reduce, apply.
+    _native.reset_launches()
+    one = groupnorm.group_norm(x, w, b, 32, 1e-6, True, add, lambda t: t, 1)
+    assert _native.LAUNCHES["gn_stats"] == 1 and _native.LAUNCHES["gn_apply"] == 1
+    _check(one, want, 2e-2)
+
+
+@pytest.mark.cuda
 def test_cuda_group_norm_alternating_team_sizes():
     """Calls whose teams differ in size, back to back on one stream, share
     the barrier counters: each must find them reset by the one before."""
@@ -753,6 +802,45 @@ def test_cuda_generate_keeps_its_graph_for_the_next_call():
     assert all(any(t is w for w in svd_controlnet._SHARED_GRAPH._held) for t in groupnorm.workspaces())
     _, _, other = run(init_params(bundle, seed=8))
     assert other is not None and other is not graph
+
+
+@pytest.mark.cuda
+def test_cuda_generate_sharded_1x1_matches_generate():
+    """generate_sharded on a (1, 1) mesh (no process group, every collective
+    a no-op) against generate() with kernels C and D off, as the sharded
+    path runs them: the same launches of every kernel (kernel 7 at 1024
+    tokens, A's one launch, never its split form), latents within 2e-2
+    relative RMS (only the CFG combine's float32 rounding differs, carried
+    through bf16 steps)."""
+    _need_cuda()
+    import dataclasses
+
+    from posetraj_torch.configs import KernelConfig, PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.parallel import generate_sharded, make_serve_mesh
+    from posetraj_torch.pipeline import generate, init_params
+
+    bundle = dataclasses.replace(_train_bundle(), kernels=KernelConfig(qkvt_attn=False, temporal_attn=False))
+    params = init_params(bundle, seed=13)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    image = torch.rand(1, 256, 256, 3, generator=g, device="cuda")
+    control = torch.rand(1, 2, 256, 256, 3, generator=g, device="cuda")
+    noises = {"latents": torch.randn(1, 2, 32, 32, 4, generator=g, device="cuda"),
+              "image_aug": torch.randn(1, 256, 256, 3, generator=g, device="cuda")}
+    pcfg = PipelineConfig(height=256, width=256, num_frames=2, num_inference_steps=3, decode_chunk_size=2)
+    sched = make_schedule(bundle.scheduler, 3)
+    args = (params, bundle, pcfg, image, control, noises, [[6.0, 128.0, 0.02]], sched.sigmas, sched.timesteps, 2)
+    outs, launches = [], []
+    for run in (lambda: generate(*args, output_latent=True),
+                lambda: generate_sharded(*args, make_serve_mesh(1, 1), output_latent=True)):
+        _native.reset_launches()
+        outs.append(run().float())
+        torch.cuda.synchronize()
+        launches.append(dict(_native.LAUNCHES))
+    assert launches[1] == launches[0]
+    assert launches[1]["flash_tq"] > 0 and launches[1]["groupnorm"] > 0 and launches[1]["gn_stats"] == 0
+    assert launches[1]["qkvt"] == launches[1]["temporal"] == 0
+    assert float((outs[1] - outs[0]).norm() / outs[0].norm()) <= 2e-2
 
 
 # --------------------------------------------------------------------------

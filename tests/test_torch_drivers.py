@@ -7,7 +7,9 @@ JAX package, fed the JAX package's preprocessing and loader:
 * inference, vipseg mode: pred/, gt/ and the GIF are written, and the
   predicted frames are those of a direct pipeline call on the JAX driver's
   inputs (the PIL-resized first frame, the JAX rasterize_cv2 control),
-  bitwise; blender mode with --bbox runs.
+  bitwise; blender mode with --bbox likewise, against a direct call with
+  bbox_condition on the JAX package's TrajectoryBlenderDataset sample, and
+  vipseg_cam against the cam variant called with a zero camera.
 * training: rec_para.txt, the JSONL, checkpoints rotated to
   --checkpoints_total_limit, the controlnet/ and controlnet_ema/ exports
   and a validation GIF are written; the final state is bitwise that of a
@@ -48,8 +50,6 @@ def _png(path):
 
 def test_inference_vipseg_matches_a_direct_pipeline_call(tmp_path):
     from posetraj_tpu.data.export import _to_uint8
-    from posetraj_tpu.data.trajectories import load_cotracker_json, scale_to_target, trajectories_to_array
-    from posetraj_tpu.ops.rasterize import rasterize_cv2
     from posetraj_torch.inference import main
     from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline, init_params
 
@@ -61,12 +61,7 @@ def test_inference_vipseg_matches_a_direct_pipeline_call(tmp_path):
     pred = sorted(os.listdir(vid / "pred"))
     assert len(pred) == 2 and len(os.listdir(vid / "gt")) == 2 and (vid / "side_by_side.gif").exists()
 
-    # The JAX driver's preprocessing (posetraj_tpu/inference.py run_vipseg)
-    first = Image.open(data / "imgs" / "vid_x" / "0000.jpg").convert("RGB")
-    image = np.asarray(first.resize((64, 64), Image.BILINEAR), np.float32) / 255.0
-    traj = trajectories_to_array(load_cotracker_json(str(data / "trajectory_CoTracker_all" / "vid_x.json")))
-    pts = scale_to_target(traj[:, :2], (first.height, first.width), (64, 64))
-    control = rasterize_cv2(pts, 2, (64, 64)).astype(np.float32) / 255.0
+    image, control = _vipseg_inputs(data)
     bundle = ModelBundle.tiny()
     pipe = SVDControlNetPipeline(init_params(bundle, seed=0, device="cpu"), bundle, device="cpu")
     want = pipe(image[None], control[None], height=64, width=64, num_frames=2, num_inference_steps=2,
@@ -75,8 +70,53 @@ def test_inference_vipseg_matches_a_direct_pipeline_call(tmp_path):
         assert np.array_equal(_png(vid / "pred" / name), _to_uint8(want[i]))
 
 
-def test_inference_blender_bbox_runs(tmp_path):
+def _live_init_params(bundle, seed=0, device=None, compute_dtype=None):
+    """pipeline.init_params with the ControlNet's zero convs, its hint
+    stacks' zero conv_out and the cam variant's identity projection made
+    random from `seed`, so that the control video and the variant's
+    condition reach the frames (with the init's zeros they cannot)."""
+    from posetraj_torch.pipeline.svd_controlnet import init_params
+
+    params = init_params(bundle, seed=seed, device=device, compute_dtype=compute_dtype)
+    gen = torch.Generator().manual_seed(seed + 100)
+    cp = params["controlnet"]
+    hint = cp["controlnet_cond_embedding"]
+    layers = cp["controlnet_down_blocks"] + [cp["controlnet_mid_block"]]
+    layers += [hint[k]["conv_out"] for k in ("stack", "stack_2") if k in hint]
+    layers += [hint["cc_projection"]] if "cc_projection" in hint else []
+    for layer in layers:
+        w = layer["weight"]
+        layer["weight"] = (torch.randn(w.shape, generator=gen) * 0.05).to(w.dtype)
+    return params
+
+
+def _vipseg_inputs(data):
+    """The JAX driver's preprocessing of the VIPSeg fixture
+    (posetraj_tpu/inference.py run_vipseg): the PIL-resized first frame and
+    the rasterize_cv2 control, 64x64, 2 frames."""
+    from posetraj_tpu.data.trajectories import load_cotracker_json, scale_to_target, trajectories_to_array
+    from posetraj_tpu.ops.rasterize import rasterize_cv2
+
+    first = Image.open(data / "imgs" / "vid_x" / "0000.jpg").convert("RGB")
+    image = np.asarray(first.resize((64, 64), Image.BILINEAR), np.float32) / 255.0
+    traj = trajectories_to_array(load_cotracker_json(str(data / "trajectory_CoTracker_all" / "vid_x.json")))
+    pts = scale_to_target(traj[:, :2], (first.height, first.width), (64, 64))
+    return image, rasterize_cv2(pts, 2, (64, 64)).astype(np.float32) / 255.0
+
+
+def test_inference_blender_bbox_runs(tmp_path, monkeypatch):
+    """blender --bbox: the bbox variant's frames are, bitwise, those of a
+    direct pipeline call with bbox_condition on the JAX package's
+    TrajectoryBlenderDataset sample (return_bbox, the driver's arguments).
+    The driver's parameters are made with live ControlNet heads, so the bbox
+    maps reach the frames: zero maps give another video."""
+    import posetraj_torch.pipeline
+    from posetraj_tpu.data import TrajectoryBlenderDataset
+    from posetraj_tpu.data.export import _to_uint8
     from posetraj_torch.inference import main
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline
+
+    monkeypatch.setattr(posetraj_torch.pipeline, "init_params", _live_init_params)
 
     data, out = tmp_path / "data", tmp_path / "results"
     _make_blender_fixture(str(data), n_videos=1, n_frames=3)
@@ -88,20 +128,53 @@ def test_inference_blender_bbox_runs(tmp_path):
           "64", "--width", "64", "--num_frames", "2", "--steps", "2", "--limit", "1", "--platform", "cpu"])
     (key,) = os.listdir(out)
     assert key.startswith("obj_0_circle_0_")
-    assert len(os.listdir(out / key / "pred")) == 2 and (out / key / "side_by_side.gif").exists()
-    assert _png(out / key / "pred" / "00000.png").shape == (64, 64, 3)
+    pred = sorted(os.listdir(out / key / "pred"))
+    assert len(pred) == 2 and (out / key / "side_by_side.gif").exists()
+
+    s = TrajectoryBlenderDataset(str(data), sample_size=(64, 64), frame_length=2, repeat_times=1, return_bbox=True,
+                                 seed=0)[0]
+    assert s["img_key"] == key
+    bundle = ModelBundle.tiny("bbox")
+    pipe = SVDControlNetPipeline(_live_init_params(bundle, seed=0, device="cpu"), bundle, device="cpu")
+    call = lambda bbox: pipe(((s["pixel_values"][0] + 1.0) / 2.0)[None], ((s["trajectories"] + 1.0) / 2.0)[None],
+                             height=64, width=64, num_frames=2, num_inference_steps=2, seed=SEED,
+                             bbox_condition=bbox[None])[0]
+    want = call((s["bbox_trajectories"] + 1.0) / 2.0)
+    for i, name in enumerate(pred):
+        assert np.array_equal(_png(out / key / "pred" / name), _to_uint8(want[i]))
+    assert not np.array_equal(_to_uint8(call(np.zeros_like(s["bbox_trajectories"]))), _to_uint8(want))
 
 
-def test_inference_vipseg_cam_runs(tmp_path):
-    """vipseg_cam: the cam variant, fed no camera (a zero camera), as the
-    reference's cam driver."""
+def test_inference_vipseg_cam_runs(tmp_path, monkeypatch):
+    """vipseg_cam: the cam variant, fed no camera, as the reference's cam
+    driver: bitwise a direct pipeline call of the cam variant with a zero
+    camera on the JAX driver's inputs. With live ControlNet heads and a
+    random camera projection the camera reaches the frames: another camera
+    gives another video."""
+    import posetraj_torch.pipeline
+    from posetraj_tpu.data.export import _to_uint8
     from posetraj_torch.inference import main
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline
+
+    monkeypatch.setattr(posetraj_torch.pipeline, "init_params", _live_init_params)
 
     data, out = tmp_path / "data", tmp_path / "results"
     _make_vipseg_fixture(str(data))
     main(["--mode", "vipseg_cam", "--data_root", str(data), "--out_dir", str(out), "--tiny", "--height", "64",
           "--width", "64", "--num_frames", "2", "--steps", "2", "--platform", "cpu"])
-    assert len(os.listdir(out / "vid_x" / "pred")) == 2 and (out / "vid_x" / "side_by_side.gif").exists()
+    pred = sorted(os.listdir(out / "vid_x" / "pred"))
+    assert len(pred) == 2 and (out / "vid_x" / "side_by_side.gif").exists()
+
+    image, control = _vipseg_inputs(data)
+    bundle = ModelBundle.tiny("cam")
+    pipe = SVDControlNetPipeline(_live_init_params(bundle, seed=0, device="cpu"), bundle, device="cpu")
+    call = lambda cam: pipe(image[None], control[None], height=64, width=64, num_frames=2, num_inference_steps=2,
+                            motion_bucket_id=10, controlnet_cond_scale=1.0, seed=SEED, camera_cond=cam[None])[0]
+    want = call(np.zeros((2, bundle.controlnet.hint.camera_dim), np.float32))
+    for i, name in enumerate(pred):
+        assert np.array_equal(_png(out / "vid_x" / "pred" / name), _to_uint8(want[i]))
+    other = call(np.full((2, bundle.controlnet.hint.camera_dim), 2.0, np.float32))
+    assert not np.array_equal(_to_uint8(other), _to_uint8(want))
 
 
 def test_drivers_load_diffusers_weight_dirs(tmp_path):

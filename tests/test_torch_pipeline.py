@@ -290,7 +290,7 @@ def test_port_imports_no_jax():
         "import posetraj_torch.pipeline, posetraj_torch.core.bridge, posetraj_torch.ops._native\n"
         "import posetraj_torch.ops.groupnorm, posetraj_torch.ops.mlp, posetraj_torch.ops.qkvt, posetraj_torch.ops.temporal\n"
         "import posetraj_torch.ops.flash, posetraj_torch.ops.layernorm, posetraj_torch.ops.attention\n"
-        "import posetraj_torch.configs, posetraj_torch.train\n"
+        "import posetraj_torch.configs, posetraj_torch.train, posetraj_torch.parallel, posetraj_torch.parallel.serve\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'posetraj_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
