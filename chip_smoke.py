@@ -156,6 +156,28 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      two cards: a (1, 2) mesh over NCCL, one process a card started by
      torch.multiprocessing, and (2, 2) where there are four, against (1, 1), s/request of each (else "phase
      11(d) not run: 1 device", not counted as passed);
+ 12. the ("data", "model") mesh (parallel/mesh.py): (a) a (1, 1) mesh
+     through a one-rank NCCL group at full width: Trainer(mesh=), four
+     graphed micro-steps at 14x320x576 (two updates), against the
+     unsharded Trainer from the same state and draws, masters, EMA,
+     moments and accumulator bitwise (every collective has size 1), every
+     training kernel launched, s/micro-step and s/optimizer-step beside
+     phase 5(e)'s; SVDControlNetPipeline(mesh=) on a batch of 2 at
+     14x576x1024, CFG, frames bitwise the pipeline's without a mesh,
+     s/request and launches a request; (b) (2, 1) and (1, 2) trainers in
+     two processes sharing the card over gloo with CUDA tensors (NCCL
+     refuses two ranks on one device), phase 5(g)'s depth, global batch 2,
+     against the unsharded Trainer on the same batch: Adam's first moment
+     after each update within 2e-2 relative RMS for (2, 1) (bf16 batch-1
+     against batch-2 forwards; the parameters' change printed beside one
+     device's own spread from pixels one float32 ulp apart: Adam amplifies
+     the noise), the moments and the change within 1e-3 for (1, 2), every
+     rank's weights and EMA bitwise
+     alike, every training kernel launched on every rank; (d) only on a
+     host with four cards: (2, 1), (1, 2) on two and (2, 2) on four over
+     NCCL at full depth, the same checks, and a batch of 4 served on each
+     against one card's, s/optimizer-step and s/request beside one card's
+     (else "phase 12(d) not run: 1 device", not counted as passed);
   7. (printed last) a `kernels` summary, the JSON line of kernel numbers,
      and the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
@@ -1591,7 +1613,8 @@ def graph_check(torch, native, bundle, params, height, width, cfg, per_step, car
     KernelConfig `cfg`. The graph must equal the eager loop bit for bit
     where two eager runs are equal (else differ no more than they do), and
     launch what the eager loop launches, `per_step` a step, counted by the
-    wrappers and by the profiler (ONE_LAUNCH_GROUPS). s/denoise-step is the
+    wrappers and by the profiler (ONE_LAUNCH_GROUPS; the larger count of
+    two profiled windows of each loop). s/denoise-step is the
     median over GRAPH_TIME_ROUNDS rounds of eager, graph, graph, eager
     calls, each after a garbage collection, so that a drift of the card's
     clock weighs on both loops alike and no collection lands in one call.
@@ -1635,16 +1658,19 @@ def graph_check(torch, native, bundle, params, height, width, cfg, per_step, car
             for name, fn in (("eager", eager), ("graph", graphed), ("graph", graphed), ("eager", eager)):
                 gc.collect()
                 samples[name].append(timed(fn)[1] / n)
+        eager_profs = [profile_step(torch, eager) for _ in range(2)]
         native.reset_launches()
-        eager_prof = profile_step(torch, eager)
-        native.reset_launches()
-        graph_prof = profile_step(torch, graphed)
+        graph_profs = [profile_step(torch, graphed)]
         added = dict(native.LAUNCHES)
+        graph_profs.append(profile_step(torch, graphed))
+        eager_prof, graph_prof = eager_profs[0], graph_profs[0]
     # The replays' counts are added by DenoiseGraph, not counted at a launch:
-    # the profiler's device launches hold them.
-    groups = sorted(set(ONE_LAUNCH_GROUPS) | {k for p in (eager_prof, graph_prof) for k in p[1] if "(port" in k})
-    device_n = {name: {k: prof[1].get(k, (0.0, 0))[1] for k in groups}
-                for name, prof in (("eager", eager_prof), ("graph", graph_prof))}
+    # the profiler's device launches hold them. The profiler can drop a
+    # device record of a window but never adds one, so each group's device
+    # launches are the larger count of two windows (as in phase 5(e)).
+    profs = {"eager": eager_profs, "graph": graph_profs}
+    groups = sorted(set(ONE_LAUNCH_GROUPS) | {k for w in profs.values() for p in w for k in p[1] if "(port" in k})
+    device_n = {name: {k: max(p[1].get(k, (0.0, 0))[1] for p in w) for k in groups} for name, w in profs.items()}
     one_call = {k: sum(added[c] for c in counters) for k, counters in ONE_LAUNCH_GROUPS.items()}
     device_ok = (device_n["graph"] == device_n["eager"] and device_n["graph"]["A groupnorm (port)"] > 0
                  and all(device_n["graph"][k] == n for k, n in one_call.items()))
@@ -2963,9 +2989,388 @@ def split_mesh_check(torch, steps, seed, ref_latents, tol, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the ("data", "model") mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+# (2, 1) against one device: two batch-1 forwards in bf16 round
+# differently from one batch-2 forward, so what the data all-reduce feeds
+# the optimizer, Adam's first moment after each update (m1 = 0.1 g1, then
+# 0.9 m1 + 0.1 g2: the windows' mean gradients), is held to phase 5(a)'s
+# gradient tolerance, MESH_DP_TOL relative RMS over the tree. The
+# parameters' change after the second update, Adam's m / sqrt(v), amplifies
+# that noise wherever the two windows' gradients nearly cancel (4.2e-2
+# measured at full depth on four H100s); it is printed beside one
+# device's own spread from pixel values one float32 ulp apart. (1, 2)
+# computes the global batch on every rank; only the clipping norm's sum
+# order differs (the split leaves' squares summed over "model"), so both
+# moments and the change are held to MESH_TP_TOL.
+MESH_DP_TOL = 2e-2
+MESH_TP_TOL = 1e-3
+MESH_TRAIN_STEPS = 4  # two optimizer updates at accumulation 2
+# 12(d): a batch of 4 served over (2, x) computes batch-2 forwards, in bf16
+# rounded otherwise than one card's batch-4 forward: frames within this
+# relative RMS of one card's (phase 3's step tolerance).
+MESH_FRAMES_TOL = 3e-2
+MESH_RANKS_TIMEOUT_S = 600
+MESH_PG_TIMEOUT_S = 300
+
+
+def mesh_bundle(depth: str):
+    """The flagship bundle, or ("cut") phase 5(g)'s: UNet and ControlNet of
+    two levels, 320 and 640 wide, one layer a block; VAE and CLIP full."""
+    import dataclasses
+
+    from posetraj_torch.configs import ControlNetConfig
+    from posetraj_torch.pipeline import ModelBundle
+
+    full = ModelBundle()
+    if depth == "full":
+        return full
+    u = dataclasses.replace(full.unet, block_out_channels=(320, 640), cross_attention_levels=(True, True),
+                            num_attention_heads=(5, 10), layers_per_block=1)
+    return dataclasses.replace(full, unet=u, controlnet=ControlNetConfig(unet=u))
+
+
+def mesh_batch(torch, b, f, h, w, seed):
+    """A global training batch of b rows from a seed, the same on every
+    process (training_batch's draws)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return {"pixel_values": torch.rand(b, f, h, w, 3, generator=g, device="cuda") * 2 - 1,
+            "trajectories": torch.rand(b, f, h, w, 3, generator=g, device="cuda") * 2 - 1,
+            "motion_values": torch.linspace(100.0, 160.0, b, device="cuda")}
+
+
+def mesh_request(b, height, width, seed):
+    """b videos' image and control video (numpy, [0, 1]) from a seed."""
+    rng = np.random.RandomState(1200 + seed)
+    return rng.rand(b, height, width, 3).astype(np.float32), rng.rand(b, 14, height, width, 3).astype(np.float32)
+
+
+def mesh_train_run(torch, native, bundle, params, mesh, batch, keep: bool):
+    """MESH_TRAIN_STEPS graphed micro-steps of a Trainer on `mesh` (None:
+    one device) at batch's size, TrainConfig defaults, warmup 1 (the second
+    update moves the parameters). Returns (the trainer, what it measured):
+    losses, s a micro-step, launches, and, with keep, host copies of the
+    whole ControlNet before, Adam's first moment after the first update and
+    the whole ControlNet, EMA and first moment after the second
+    (state_dict: a collective), and a digest of the whole weights."""
+    import hashlib
+
+    from posetraj_torch.configs import TrainConfig
+    from posetraj_torch.train import Trainer
+
+    f, h, w = batch["pixel_values"].shape[1:4]
+    tcfg = TrainConfig(num_frames=f, height=h, width=w, lr_warmup_steps=1)
+    frozen = {k: params[k] for k in ("unet", "vae", "clip")}
+    trainer = Trainer(bundle, tcfg, frozen, params["controlnet"], mesh=mesh, device="cuda")
+    out = {"loss": [], "s": []}
+    host = lambda ts: [t.detach().float().cpu() for t in ts]  # noqa: E731
+    if keep:
+        out["before"] = host(_tree_leaves(trainer.state.controlnet_params))
+    native.reset_launches()
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(m["loss"]))
+        if i == 1:
+            sd = trainer.state_dict()
+            if keep:
+                out["m1"] = host(sd["optimizer"]["state"][j]["exp_avg"] for j in sorted(sd["optimizer"]["state"]))
+            del sd
+    out["launches"] = dict(native.LAUNCHES)
+    sd = trainer.state_dict()
+    if keep:
+        out["after"], out["ema"] = host(_tree_leaves(sd["controlnet"])), host(_tree_leaves(sd["ema"]))
+        out["m2"] = host(sd["optimizer"]["state"][j]["exp_avg"] for j in sorted(sd["optimizer"]["state"]))
+    digest = hashlib.sha1()
+    for t in _tree_leaves(sd["controlnet"]) + _tree_leaves(sd["ema"]):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    out["digest"] = digest.hexdigest()
+    del sd
+    return trainer, out
+
+
+def mesh_serve_run(torch, native, bundle, params, mesh, b, steps, calls=2):
+    """SVDControlNetPipeline(mesh=) (None: one device) on b videos at
+    14x576x1024, CFG, `steps` steps, `calls` times (the first call captures
+    the denoise graph): the frames and s of each, the last call's
+    launches."""
+    from posetraj_torch.pipeline import SVDControlNetPipeline
+
+    pipe = SVDControlNetPipeline(params, bundle, mesh=mesh, device="cuda")
+    image, control = mesh_request(b, 576, 1024, 0)
+    frames, secs = [], []
+    for _ in range(calls):
+        native.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(pipe(image, control, height=576, width=1024, num_frames=14, num_inference_steps=steps, seed=3))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out = {"frames": frames, "s": secs, "launches": dict(native.LAUNCHES)}
+    del pipe
+    return out
+
+
+def mesh_reference(torch, native, bundle, params, batch):
+    """mesh_train_run on one device over `batch`, with "floor": the relative
+    RMS between its parameters' change after the second update and that of
+    the same run from pixel values one float32 ulp up (the spread of bf16
+    rounding through Adam)."""
+    trainer, ref = mesh_train_run(torch, native, bundle, params, None, batch, True)
+    del trainer
+    pix = batch["pixel_values"]
+    nudged = dict(batch, pixel_values=torch.nextafter(pix, torch.full_like(pix, np.inf)))
+    trainer, far = mesh_train_run(torch, native, bundle, params, None, nudged, True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["floor"] = rel_rms_tree(mesh_delta(far), mesh_delta(ref))
+    return ref
+
+
+def mesh_delta(run):
+    """The parameters' change over a mesh_train_run, leaf by leaf."""
+    return [a - b for a, b in zip(run["after"], run["before"])]
+
+
+def rel_rms_tree(got, want) -> float:
+    """||got - want|| / ||want|| over every leaf of two lists of tensors."""
+    num = sum(float((g.double() - w.double()).square().sum()) for g, w in zip(got, want))
+    den = sum(float(w.double().square().sum()) for w in want)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def mesh_single_check(torch, native, bundle, params, steps, card, ge, training_kernels, inference_kernels):
+    """Phase 12(a): a (1, 1) mesh through a one-rank NCCL group at full
+    width: MESH_TRAIN_STEPS graphed micro-steps at 14x320x576 of
+    Trainer(mesh=) against the unsharded Trainer from the same state and
+    draws, masters, EMA and moments bitwise (every collective has size
+    1), every training kernel launched; SVDControlNetPipeline(mesh=) on a
+    batch of 2, 14x576x1024, CFG, `steps` steps, frames bitwise those of
+    the pipeline without a mesh (one call of each, which captures its
+    denoise graph). Returns the mesh request's launches."""
+    import torch.distributed as dist
+
+    from posetraj_torch.parallel.mesh import make_mesh
+
+    say(f"phase 12: the (\"data\", \"model\") mesh (parallel/mesh.py) on {card}")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        batch = mesh_batch(torch, 1, 14, 320, 576, 1212)
+        trainer, ref = mesh_train_run(torch, native, bundle, params, None, batch, False)
+        want = _to_host(train_state_groups(trainer))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, got = mesh_train_run(torch, native, bundle, params, mesh, batch, False)
+        diff = state_diff(torch, want, train_state_groups(trainer))
+        del trainer, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        bitwise = all(v == 0.0 for v in diff.values()) and got["loss"] == ref["loss"]
+        launched = all(got["launches"][k] > 0 for k in training_kernels)
+        micro = lambda r: round(statistics.median(r["s"][2:]), 4)  # noqa: E731
+        opt = lambda r: round(r["s"][2] + r["s"][3], 4)  # noqa: E731
+        say(f"  (a) Trainer(mesh=) on (1, 1) over a one-rank NCCL group, 14x320x576, {MESH_TRAIN_STEPS} graphed "
+            f"micro-steps (two updates) against the unsharded Trainer from the same state and draws: max diff "
+            f"{diff}, losses {got['loss']} vs {ref['loss']}: {'bitwise' if bitwise else 'FAIL'}; launches "
+            f"{ {k: n for k, n in got['launches'].items() if n} } {'ok' if launched else 'FAIL'}; s/micro-step "
+            f"(steps 3-4, replays) mesh {micro(got)}, unsharded {micro(ref)}, phase 5(e) {ge['micro_s']['graph']:.4f}; "
+            f"s/optimizer-step mesh {opt(got)}, unsharded {opt(ref)}, phase 5(e) {ge['opt_s']['graph']:.4f}; "
+            f"first micro-step (eager, capture) {got['s'][0]:.3f} s on {card}")
+        if not (bitwise and launched):
+            fail("Trainer(mesh=) on (1, 1) is not bitwise the unsharded Trainer, or missed a training kernel")
+        ref = mesh_serve_run(torch, native, bundle, params, None, 2, steps, calls=1)
+        got = mesh_serve_run(torch, native, bundle, params, mesh, 2, steps, calls=1)
+    finally:
+        dist.destroy_process_group()
+    frames = got["frames"]
+    same = all(np.array_equal(x, ref["frames"][0]) for x in frames)
+    ok = (same and frames[0].shape == (2, 14, 576, 1024, 3) and np.isfinite(frames[0]).all()
+          and all(got["launches"][k] > 0 for k in inference_kernels)
+          and not any(got["launches"][k] for k in ("flash_fwd", "flash_bwd", "flash_qkv", "flash_tq", "layernorm",
+                                                   "gn_stats", "gn_apply")))
+    say(f"  (a) SVDControlNetPipeline(mesh=) on (1, 1), a batch of 2 at 14x576x1024 CFG, {steps} steps: frames "
+        f"{'bitwise' if same else 'NOT bitwise'} those without a mesh; s/request {got['s'][0]:.3f}, without a mesh "
+        f"{ref['s'][0]:.3f} (each a pipeline's first call, its denoise graph captured in it); launches a request "
+        f"{ {k: n for k, n in got['launches'].items() if n} } {'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        fail("SVDControlNetPipeline(mesh=) on (1, 1) is not bitwise the pipeline without a mesh, or launched other "
+             "kernels")
+    return got["launches"]
+
+
+def mesh_rank(rank, world, backend, port, depth, steps, out_dir) -> None:
+    """One rank of phase 12(b) (gloo, both ranks on cuda:0) or 12(d) (NCCL,
+    cuda:rank), a process that torch.multiprocessing starts: world 2 trains
+    on (2, 1) and (1, 2), world 4 on (2, 2) (mesh_train_run on the global
+    batch of 2); with steps, each mesh also serves a batch of 4. Writes what
+    it measured to out_dir."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from posetraj_torch.ops import _native
+    from posetraj_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    try:
+        bundle = mesh_bundle(depth)
+        params = make_params(torch, bundle, 12)
+        batch = mesh_batch(torch, 2, 14, 320, 576, 1213)
+        out = {}
+        for shape in ([(2, 1), (1, 2)] if world == 2 else [(2, 2)]):
+            mesh = make_mesh(*shape, device=device)
+            trainer, run = mesh_train_run(torch, _native, bundle, params, mesh, batch, rank == 0)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            if steps:
+                serve = mesh_serve_run(torch, _native, bundle, params, mesh, 4, steps, calls=1)
+                run["serve_s"], run["serve_launches"] = serve["s"], serve["launches"]
+                run["frames"] = serve["frames"][0] if rank == 0 else None
+            out[shape] = run
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_ranks(torch, world, backend, depth, steps, label):
+    """Start `world` mesh_rank processes, join them within
+    MESH_RANKS_TIMEOUT_S (killed on overrun) and return their outputs."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        ranks = tmp.start_processes(mesh_rank, args=(world, backend, free_port(), depth, steps, d), nprocs=world,
+                                    join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_RANKS_TIMEOUT_S
+        try:
+            while not ranks.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    fail(f"{label}: the ranks took over {MESH_RANKS_TIMEOUT_S} s")
+        except Exception as e:  # a rank raised or exited non-zero: the others are ended by join
+            fail(f"{label}: a rank failed: {e}")
+        finally:
+            for p in ranks.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def mesh_compare(outs, shape, ref, training_kernels, label, card):
+    """Phase 12(b) and (d)'s checks of one mesh's training against the
+    unsharded run on the same global batch: every rank's whole weights and
+    EMA bitwise alike, every training kernel launched on every rank, Adam's
+    first moment after each update within the mesh's tolerance, and at
+    (1, x) the parameters' change too (MESH_DP_TOL's comment); losses
+    beside."""
+    run = outs[0][shape]
+    tol = MESH_DP_TOL if shape[0] > 1 else MESH_TP_TOL
+    alike = len({o[shape]["digest"] for o in outs}) == 1
+    launched = all(o[shape]["launches"][k] > 0 for o in outs for k in training_kernels)
+    m1, m2 = rel_rms_tree(run["m1"], ref["m1"]), rel_rms_tree(run["m2"], ref["m2"])
+    upd = rel_rms_tree(mesh_delta(run), mesh_delta(ref))
+    ema = rel_rms_tree(run["ema"], ref["ema"])
+    ok = alike and launched and m1 <= tol and m2 <= tol and (shape[0] > 1 or upd <= tol)
+    say(f"  {label} ({shape[0]}, {shape[1]}) trainer, global batch 2, {MESH_TRAIN_STEPS} graphed micro-steps: Adam's "
+        f"first moment after updates 1 and 2 rel RMS {m1:.4g}, {m2:.4g} (tol {tol:g}); the parameters' change after "
+        f"update 2 {upd:.4g}{'' if shape[0] > 1 else f' (tol {tol:g})'}, one device's own from pixels one ulp "
+        f"apart {ref['floor']:.4g}; EMA {ema:.4g}; losses {run['loss']} vs {ref['loss']}; every rank's weights and "
+        f"EMA bitwise "
+        f"alike {alike}; every training kernel on every rank {launched}; s/micro-step (replays) "
+        f"{round(statistics.median(run['s'][2:]), 4)}, s/optimizer-step {round(run['s'][2] + run['s'][3], 4)} "
+        f"{'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        fail(f"{label}: the ({shape[0]}, {shape[1]}) trainer disagrees with one device's, its ranks differ, or a "
+             "training kernel was missed")
+
+
+def mesh_gloo_check(torch, native, training_kernels, card):
+    """Phase 12(b): two processes sharing the card over gloo with CUDA
+    tensors (NCCL refuses two ranks on one device): (2, 1) and (1, 2)
+    trainers on a global batch of 2 at 14x320x576, full width, phase 5(g)'s
+    depth, against the unsharded Trainer on the same batch, made here."""
+    bundle = mesh_bundle("cut")
+    params = make_params(torch, bundle, 12)
+    ref = mesh_reference(torch, native, bundle, params, mesh_batch(torch, 2, 14, 320, 576, 1213))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = run_mesh_ranks(torch, 2, "gloo", "cut", 0, "phase 12(b)")
+    say(f"  (b) two processes on one card over gloo with CUDA tensors, UNet/ControlNet (320, 640) one layer a "
+        f"block, VAE and CLIP full: the ranks took {time.perf_counter() - t0:.1f} s; unsharded s/micro-step "
+        f"(replays) {round(statistics.median(ref['s'][2:]), 4)}")
+    for shape in ((2, 1), (1, 2)):
+        mesh_compare(outs, shape, ref, training_kernels, "(b)", card)
+
+
+def mesh_multi_check(torch, native, bundle, steps, training_kernels, inference_kernels, card):
+    """Phase 12(d), only where the host has four cards: (2, 1) and (1, 2) on
+    two, (2, 2) on four, over NCCL, one process a card, full width and
+    depth: mesh_compare against the unsharded Trainer on the same batch
+    (made here on card 0), and a batch of 4 served on each mesh (one call,
+    which captures), its frames against one card's (the (2, x) meshes
+    compute batch-2 forwards: MESH_FRAMES_TOL), s/optimizer-step and
+    s/request beside one card's."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 4:
+        say(f"  (d) phase 12(d) not run: {n_dev} device")
+        return
+    mparams = make_params(torch, bundle, 12)
+    ref = mesh_reference(torch, native, bundle, mparams, mesh_batch(torch, 2, 14, 320, 576, 1213))
+    one = mesh_serve_run(torch, native, bundle, mparams, None, 4, steps, calls=1)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  (d) one card: s/optimizer-step {round(ref['s'][2] + ref['s'][3], 4)}, s/request of a batch of 4 "
+        f"{one['s'][0]:.3f} (a first call, its capture included, as on each mesh)")
+    for world in (2, 4):
+        outs = run_mesh_ranks(torch, world, "nccl", "full", steps, "phase 12(d)")
+        for shape, run in outs[0].items():
+            mesh_compare(outs, shape, ref, training_kernels, "(d)", card)
+            rel = rel_rms_tree([torch.from_numpy(run["frames"])], [torch.from_numpy(one["frames"][0])])
+            served = all(o[shape]["serve_launches"][k] > 0 for o in outs for k in inference_kernels)
+            ok = served and rel <= MESH_FRAMES_TOL
+            say(f"  (d) ({shape[0]}, {shape[1]}) serving a batch of 4, {steps} steps: s/request (rank 0) "
+                f"{[round(s, 3) for s in run['serve_s']]}; frames vs one card rel RMS {rel:.4g} (tol "
+                f"{MESH_FRAMES_TOL:g}); every inference kernel on every rank {served} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"phase 12(d): the ({shape[0]}, {shape[1]}) batched request disagrees with one card's")
+
+
+def mesh_phase(torch, native, bundle, params, args, ge, training_kernels, inference_kernels, card):
+    """Phase 12; returns the (1, 1) mesh request's launches."""
+    t0 = time.perf_counter()
+    launches = mesh_single_check(torch, native, bundle, params, args.steps, card, ge, training_kernels,
+                                 inference_kernels)
+    torch.cuda.empty_cache()
+    mesh_gloo_check(torch, native, training_kernels, card)
+    torch.cuda.empty_cache()
+    mesh_multi_check(torch, native, bundle, args.steps, training_kernels, inference_kernels, card)
+    say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--steps", type=int, default=25, help="Euler steps per request in phases 4, 6, 8, 10(c) and 11")
+    ap.add_argument("--steps", type=int, default=25,
+                    help="Euler steps per request in phases 4, 6, 8, 10(c), 11 and 12")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -3184,6 +3589,9 @@ def main() -> None:
 
     # Phase 11: single-video sharded serving.
     rows11, sharded = sharded_phase(torch, _native, groupnorm, flash, bundle, params, args, req_s, card)
+
+    # Phase 12: the ("data", "model") mesh.
+    mesh_phase(torch, _native, bundle, params, args, ge, training_kernels, inference_kernels, card)
 
     # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's
     # (A's split form phase 11's sharded requests).

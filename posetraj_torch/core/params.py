@@ -20,6 +20,20 @@ def leaves(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
+def chunks(tensors, limit: int) -> Iterator[list]:
+    """Consecutive groups of `tensors` of at most `limit` elements each (a
+    larger tensor alone)."""
+    group, n = [], 0
+    for t in tensors:
+        if group and n + t.numel() > limit:
+            yield group
+            group, n = [], 0
+        group.append(t)
+        n += t.numel()
+    if group:
+        yield group
+
+
 def count_params(tree) -> int:
     return sum(t.numel() for t in leaves(tree))
 

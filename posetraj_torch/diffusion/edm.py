@@ -40,6 +40,13 @@ def stratified_uniform(u: torch.Tensor) -> torch.Tensor:
 def rand_cosine_interpolated(u: torch.Tensor, cfg: EDMConfig = EDMConfig()) -> torch.Tensor:
     """Training sigmas from the interpolated cosine logSNR schedule (simple
     diffusion), given plain uniform draws `u` of the output's shape."""
+    return cosine_interpolated_sigmas(stratified_uniform(u.float()), cfg)
+
+
+def cosine_interpolated_sigmas(t: torch.Tensor, cfg: EDMConfig = EDMConfig()) -> torch.Tensor:
+    """rand_cosine_interpolated from its stratified draws `t` (a batch's
+    strata are those of the whole batch: a rank holding some of its rows
+    takes its rows of the whole batch's `t`)."""
 
     def logsnr_schedule_cosine(t, logsnr_min, logsnr_max):
         t_min = math.atan(math.exp(-0.5 * logsnr_max))
@@ -52,7 +59,6 @@ def rand_cosine_interpolated(u: torch.Tensor, cfg: EDMConfig = EDMConfig()) -> t
 
     logsnr_min = -2.0 * math.log(cfg.min_value / cfg.sigma_data)
     logsnr_max = -2.0 * math.log(cfg.max_value / cfg.sigma_data)
-    t = stratified_uniform(u.float())
     low = shifted(t, cfg.noise_d_low, logsnr_min, logsnr_max)
     high = shifted(t, cfg.noise_d_high, logsnr_min, logsnr_max)
     logsnr = low + t * (high - low)

@@ -24,6 +24,7 @@ from posetraj_torch.core.init import Init
 from posetraj_torch.models.resnet import init_spatio_temporal_res_block, spatio_temporal_res_block
 from posetraj_torch.models.transformer import init_transformer_spatio_temporal, transformer_spatio_temporal
 from posetraj_torch.ops.primitives import downsample_2x, upsample_nearest_2x
+from posetraj_torch.parallel import mesh
 
 CROSS_ATTN_EPS = 1e-6
 PLAIN_EPS = 1e-5
@@ -31,10 +32,22 @@ PLAIN_EPS = 1e-5
 
 def maybe_checkpoint(fn, enabled: bool):
     """fn, or fn run under a non-reentrant checkpoint. The units draw no
-    random numbers, so the RNG state is not saved."""
+    random numbers, so the RNG state is not saved. The batch layout of a
+    mesh's data axis (parallel.mesh.global_batch_rows) in force at the call
+    is in force in the recompute too, which runs in the backward."""
     if not enabled:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    def run(*args):
+        rows = mesh.batch_rows()
+
+        def unit(*a):
+            with mesh.global_batch_rows(rows):
+                return fn(*a)
+
+        return checkpoint(unit, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return run
 
 
 def init_down_block(ini: Init, in_channels: int, out_channels: int, temb_channels: int, num_layers: int,

@@ -25,7 +25,8 @@ sequence-major while the hidden rows are batch-major, so for the CFG batch of
 
 Under sharded serving (parallel/spmd.py) kernels C and D decline, spatial
 self-attention gathers K/V over sp, and the Q7 index uses global batch rows
-and pixel positions.
+and pixel positions; over a ("data", "model") mesh (parallel/mesh.py) it
+uses the global batch's rows and table (mesh.global_batch_rows).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from posetraj_torch.models.resnet import alpha_blend
 from posetraj_torch.ops import mlp, qkvt, temporal
 from posetraj_torch.ops.attention import attention, self_attention_qkv
 from posetraj_torch.ops.primitives import geglu, group_norm_silu, layer_norm, linear
-from posetraj_torch.parallel import spmd
+from posetraj_torch.parallel import mesh, spmd
 
 
 def init_attention(ini: Init, query_dim: int, heads: int, cross_attention_dim: Optional[int] = None) -> dict:
@@ -280,6 +281,9 @@ def transformer_spatio_temporal(params: dict, x: torch.Tensor, context: torch.Te
         ctx_sp = spmd.current()
         sp_here = ctx_sp is not None and ctx_sp.w_sharded_at(hh)
         table, b_ids, b_glob = ctx_first, torch.arange(b, device=x.device), b
+        rows = mesh.batch_rows()
+        if rows is not None:  # this rank's rows of a batch split over a mesh's "data" axis
+            table, b_ids, b_glob = rows.table.to(ctx_first.dtype), rows.rows, rows.table.shape[0]
         col, w_glob = torch.arange(ww, device=x.device), ww
         if ctx_sp is not None and ctx_sp.cfg_size > 1:
             table = spmd.all_gather_cfg(ctx_first, ctx_sp)

@@ -1,8 +1,21 @@
-"""Single-video sharded serving on torch.distributed: the ("cfg", "sp") mesh
-and the spatial-sharding context (spmd.py), make_serve_mesh and
-generate_sharded (serve.py). The data- and tensor-parallel mesh of the JAX
-package's parallel/mesh.py is not in the port yet."""
+"""The parallel layer on torch.distributed, one process a device: the
+("data", "model") mesh of data parallelism and the at-rest sharding of the
+transformer weights (mesh.py: initialize_distributed, make_mesh,
+param_shardings, ...; used by Trainer(mesh=), SVDControlNetPipeline(mesh=)
+and the training CLI's --distributed), and single-video sharded serving:
+the ("cfg", "sp") mesh and the spatial-sharding context (spmd.py),
+make_serve_mesh and generate_sharded (serve.py)."""
 
+from posetraj_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    Sharding,
+    batch_sharding,
+    initialize_distributed,
+    make_mesh,
+    param_shardings,
+    replicated,
+    shard_params,
+)
 from posetraj_torch.parallel.spmd import ServeMesh, SpmdCtx, local_tokens, spatial_sharding  # noqa: F401
 
 _SERVE = ("generate_sharded", "make_serve_mesh")

@@ -39,7 +39,7 @@ from posetraj_torch.configs import (
     use_kernels,
 )
 from posetraj_torch.core.init import default_compute_dtype, make_init, resolve_device
-from posetraj_torch.core.params import leaves
+from posetraj_torch.core.params import flatten_dict, leaves, tree_map
 from posetraj_torch.diffusion.euler_karras import euler_step, make_schedule
 from posetraj_torch.models import clip as clip_m
 from posetraj_torch.models import controlnet as cn
@@ -392,15 +392,33 @@ class SVDControlNetPipeline:
         """serve_mesh: a ("cfg", "sp") parallel.spmd.ServeMesh
         (parallel/serve.make_serve_mesh) for single-video sharded serving:
         batch-1 calls run parallel/serve.generate_sharded on it, on its
-        device. mesh (batched data / tensor parallelism) is not in the port
-        yet and raises; the two cannot be combined."""
+        device.
+
+        mesh: a ("data", "model") parallel.mesh.Mesh for batched serving,
+        on every rank of the job: each call draws the global batch's noises
+        from the seed, runs generate() on the rank's data rows and
+        all-gathers the frames over "data", so every rank returns the whole
+        batch. The ControlNet's leaves that param_shardings splits over
+        "model" are kept as this rank's blocks and all-gathered into
+        whole-weight buffers once a call, before the denoise graph; the
+        frozen models stay whole. The two meshes cannot be combined."""
         if mesh is not None and serve_mesh is not None:
             raise ValueError("mesh (batched) and serve_mesh (single-video) are mutually exclusive")
-        if mesh is not None:
-            raise NotImplementedError("SVDControlNetPipeline(mesh=...): the parallel layer's data- and "
-                                      "tensor-parallel mesh (parallel/mesh.py) is not in the port yet")
+        self.mesh = mesh
         self.serve_mesh = serve_mesh
-        self.device = serve_mesh.device if serve_mesh is not None else resolve_device(device)
+        self.device = (serve_mesh.device if serve_mesh is not None else mesh.device if mesh is not None
+                       else resolve_device(device))
+        self._blocks = []  # (Sharding, this rank's block, whole-weight buffer) of each split leaf
+        self._rows = None  # the Q7 context of a batch split over "data", at fixed addresses for the graph
+        if mesh is not None:
+            from posetraj_torch.parallel.mesh import param_shardings
+
+            ctrl = params["controlnet"]
+            shardings = list(flatten_dict(param_shardings(ctrl, mesh)).values())
+            flat = [torch.empty_like(t) if sh.sharded else t for sh, t in zip(shardings, leaves(ctrl))]
+            self._blocks = [(sh, sh.local(t), w) for sh, t, w in zip(shardings, leaves(ctrl), flat) if sh.sharded]
+            it = iter(flat)
+            params = dict(params, controlnet=tree_map(lambda _: next(it), ctrl))
         self.params = params
         self.bundle = bundle
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
@@ -434,10 +452,13 @@ class SVDControlNetPipeline:
             }
         sched = make_schedule(self.bundle.scheduler, num_inference_steps)
         time_ids = np.tile(added_time_ids_inference(pcfg), (b, 1))
+        bbox = None if bbox_condition is None else _to_float_array(bbox_condition)
+        if self.mesh is not None:
+            return self._postprocess(self._call_mesh(pcfg, image, control, noises, time_ids, sched, camera_cond,
+                                                     bbox, rot_id, output_type).cpu().numpy(), output_type)
         args = (self.params, self.bundle, pcfg, image, control, noises, time_ids, sched.sigmas, sched.timesteps,
                 num_frames)
-        kw = dict(camera_cond=camera_cond, rot_id=rot_id, output_latent=(output_type == "latent"),
-                  bbox_cond=None if bbox_condition is None else _to_float_array(bbox_condition),
+        kw = dict(camera_cond=camera_cond, rot_id=rot_id, output_latent=(output_type == "latent"), bbox_cond=bbox,
                   compute_dtype=self.compute_dtype)
         if self.serve_mesh is not None and b == 1:
             from posetraj_torch.parallel.serve import generate_sharded
@@ -446,6 +467,39 @@ class SVDControlNetPipeline:
         else:
             frames = generate(*args, device=self.device, graph=self.graph, **kw)
         return self._postprocess(frames.cpu().numpy(), output_type)
+
+    def _call_mesh(self, pcfg, image, control, noises, time_ids, sched, camera_cond, bbox, rot_id, output_type):
+        """A batched call over the mesh: the split ControlNet leaves
+        gathered whole, generate() on this rank's rows of every batched
+        input, the frames (or latents) gathered over "data"."""
+        from posetraj_torch.parallel.mesh import BatchRows, batch_sharding, gather_batch_rows, global_batch_rows
+
+        with torch.no_grad():
+            for sh, block, whole in self._blocks:
+                sh.gather(block, out=whole)
+        rows = batch_sharding(self.mesh, 1)
+        local = lambda x: None if x is None else rows.local(torch.as_tensor(x))
+        image = local(image)
+        layout = None
+        if rows.sharded:
+            # Quirk Q7 reads the whole CFG batch's CLIP context: each rank's
+            # CLIP rows (computed here and again inside generate(), a small
+            # encode) gathered over "data" into buffers the graph reads.
+            with torch.inference_mode():
+                clip = encode_image_clip(self.params, self.bundle, _as_tensor(image, self.device), self.compute_dtype)
+            ctx = gather_batch_rows(self.mesh, clip, groups=2)
+            if self._rows is None or self._rows.table.shape != ctx.table.shape:
+                self._rows = BatchRows(ctx.table.clone(), ctx.rows.clone())
+            else:
+                self._rows.table.copy_(ctx.table)
+            layout = self._rows
+        with global_batch_rows(layout):
+            frames = generate(self.params, self.bundle, pcfg, image, local(control),
+                              {k: local(v) for k, v in noises.items()}, local(time_ids), sched.sigmas,
+                              sched.timesteps, pcfg.num_frames, camera_cond=local(camera_cond), bbox_cond=local(bbox),
+                              rot_id=local(rot_id), output_latent=(output_type == "latent"), device=self.device,
+                              compute_dtype=self.compute_dtype, graph=self.graph)
+        return rows.gather(frames)
 
     @staticmethod
     def _postprocess(frames: np.ndarray, output_type: str):

@@ -4,7 +4,9 @@ posetraj_tpu/train/checkpoints.py).
 A checkpoint is the directory `<root>/checkpoint-<step>/` holding one
 `torch.save` file, `state.pt`: the float32 masters, the EMA, the gradient
 accumulator, the optimizer's and the scheduler's state, the step and the
-trainer's generator state (`Trainer.state_dict`). The JAX step folds its
+trainer's generator state (`Trainer.state_dict`). A trainer on a mesh
+writes the file an unsharded trainer writes at the same step, and restores
+one into its own layout. The JAX step folds its
 step into its key, so a resumed run draws what an uninterrupted one draws;
 here the saved generator state does that. `keep_total_limit` removes the
 oldest checkpoints beyond that many (the reference's
@@ -39,21 +41,33 @@ def latest_checkpoint(root: str) -> Optional[str]:
     return os.path.join(root, dirs[-1]) if dirs else None
 
 
-def save_checkpoint(root: str, step: int, trainer_state, keep_total_limit: Optional[int] = None) -> str:
+def save_checkpoint(root: str, step: int, trainer_state, keep_total_limit: Optional[int] = None,
+                    mesh=None) -> str:
     """Write `trainer_state` (a Trainer, or a dict such as its state_dict())
     under checkpoint-<step>; then keep only the newest keep_total_limit
     checkpoints. The file is written under a temporary name and renamed, so
-    a run cut during the write leaves no checkpoint that looks whole."""
+    a run cut during the write leaves no checkpoint that looks whole.
+
+    Under a mesh (a Trainer's own, or `mesh` with a dict) every rank calls
+    this: the trainer's state_dict gathers the unsharded trainer's dict
+    (JAX's device_get), rank 0 writes it, and every rank waits on a barrier
+    before and after the write."""
+    mesh = getattr(trainer_state, "mesh", mesh)
     sd = trainer_state.state_dict() if hasattr(trainer_state, "state_dict") else trainer_state
     path = os.path.join(root, f"checkpoint-{step}")
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(sd, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
-    if keep_total_limit:
-        dirs = _ckpt_dirs(root)
-        for d in dirs[: max(0, len(dirs) - keep_total_limit)]:
-            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    if mesh is not None:
+        mesh.barrier()
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(sd, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        if keep_total_limit:
+            dirs = _ckpt_dirs(root)
+            for d in dirs[: max(0, len(dirs) - keep_total_limit)]:
+                shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -66,9 +80,10 @@ def load_checkpoint(path: str, map_location=None):
 
 def restore_checkpoint(path: str, trainer) -> None:
     """Restore the checkpoint at `path` into `trainer` in place
-    (Trainer.load_state_dict): the next micro-step is the one that followed
-    the save. Read to host memory first: the optimizer keeps its step
-    counts there, and the tensors are copied into the trainer's own."""
+    (Trainer.load_state_dict), into any mesh's layout: the next micro-step
+    is the one that followed the save. Read to host memory first: the
+    optimizer keeps its step counts there, and the tensors are copied into
+    the trainer's own."""
     trainer.load_state_dict(load_checkpoint(path, map_location="cpu"))
 
 

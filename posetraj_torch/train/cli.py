@@ -17,10 +17,19 @@ parameter audit (train...blender_14.py:1029-1038), metrics JSONL
 (+TensorBoard), validation side-by-side GIFs every --validation_steps
 (:1418-1495).
 
-One device: `cuda`, or the CPU with --platform cpu. The parallel layer's
-data- and tensor-parallel mesh (the JAX package's parallel/mesh.py) is not
-in the port yet, so --distributed and --n_model_shards > 1 raise
-NotImplementedError.
+One device: `cuda`, or the CPU with --platform cpu. Several: one process a
+device, started by torchrun (or with --coordinator_address host:port,
+--num_processes and --process_id), each given --distributed; they train
+over a ("data", "model") mesh of --n_model_shards model shards
+(parallel/mesh.py):
+
+    torchrun --nproc_per_node 4 -m posetraj_torch.train.cli --distributed \
+        --n_model_shards 2 --stage pretrain --video_folder <10k> --output_dir out/
+
+The global batch is --per_device_batch_size times the data axis; each rank
+loads its data coordinate's rows. Rank 0 logs, writes checkpoints and the
+exports and renders the validation videos; every collective runs on every
+rank.
 
 `main` builds the trainer and the datasets; `train_loop` runs the epochs
 (loading, steps, logging, checkpoints, exports, validation renders) and can
@@ -31,9 +40,6 @@ from __future__ import annotations
 
 import argparse
 import os
-
-NO_PARALLEL = ("the parallel layer's data- and tensor-parallel mesh (parallel/mesh.py) is not in the port "
-               "yet: the training CLI runs on one device")
 
 
 def parse_args(argv=None):
@@ -89,11 +95,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=23123134)
     p.add_argument("--resume_from_checkpoint", default=None)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process run: not supported by the port yet (raises)")
-    p.add_argument("--coordinator_address", default=None, help="with --distributed (not supported yet)")
-    p.add_argument("--num_processes", type=int, default=None, help="with --distributed (not supported yet)")
-    p.add_argument("--process_id", type=int, default=None, help="with --distributed (not supported yet)")
-    p.add_argument("--n_model_shards", type=int, default=1, help="model-parallel shards: 1 (more raise)")
+                   help="one process of a multi-process run (torchrun's environment, or the three flags below)")
+    p.add_argument("--coordinator_address", default=None, help="host:port of rank 0, with --distributed")
+    p.add_argument("--num_processes", type=int, default=None, help="with --coordinator_address")
+    p.add_argument("--process_id", type=int, default=None, help="with --coordinator_address")
+    p.add_argument("--n_model_shards", type=int, default=1,
+                   help="size of the mesh's model axis (needs --distributed above 1)")
     p.add_argument("--no_gradient_checkpointing", action="store_true")
     # Memory options (TrainConfig docstrings).
     p.add_argument("--adam_mu_bf16", action="store_true",
@@ -166,7 +173,7 @@ def train_config(args):
     )
 
 
-def build_trainer(args, device=None):
+def build_trainer(args, device=None, mesh=None):
     """(trainer, frozen params, controlnet dtypes): random parameters from
     args.seed (pipeline.init_params, whose ControlNet copies the UNet's
     encoder), frozen weights from --svd_root and the ControlNet from
@@ -190,7 +197,7 @@ def build_trainer(args, device=None):
         cn_params = cn.controlnet_from_unet(cn_params, frozen["unet"])
     if args.controlnet_init:
         cn_params = params_from_diffusers(load_diffusers_model_dir(args.controlnet_init), cn_params, "controlnet")
-    trainer = Trainer(bundle, train_config(args), frozen, cn_params, device=device)
+    trainer = Trainer(bundle, train_config(args), frozen, cn_params, mesh=mesh, device=device)
     return trainer, frozen, tree_map(lambda t: t.dtype, cn_params)
 
 
@@ -212,24 +219,35 @@ def train_loop(args, trainer, frozen, cn_dtypes, dataset, val_dataset, logger) -
     diffusers exports every --checkpointing_steps, validation renders from
     `val_dataset` every --validation_steps, and a final checkpoint (unless
     the last step's was just written: the same state). Resumes the data
-    order from trainer.state.step. Returns the last step."""
+    order from trainer.state.step. Returns the last step. Under the
+    trainer's mesh every rank runs this; the loader reads the rank's data
+    coordinate's rows of each global batch, rank 0 alone writes and
+    renders (`logger` may be None on the others)."""
     from posetraj_torch.data.datasets import PrefetchLoader, epoch_batches
     from posetraj_torch.train import checkpoints as ckpt
 
-    global_batch = args.per_device_batch_size
-    loader = PrefetchLoader(dataset, global_batch, num_workers=args.num_workers)
+    mesh = trainer.mesh
+    n_data, data_rank = (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
+    lead = mesh is None or mesh.rank == 0
+    global_batch = args.per_device_batch_size * n_data
+    loader = PrefetchLoader(dataset, global_batch, num_workers=args.num_workers, process_index=data_rank,
+                            process_count=n_data)
     step = int(trainer.state.step)
     saved = None
-    print(f"dataset: {len(dataset)} samples; batch {global_batch}; device {trainer.device}")
+    print(f"dataset: {len(dataset)} samples; global batch {global_batch}; device {trainer.device}"
+          + ("" if mesh is None else f"; rank {mesh.rank} of a {tuple(mesh.shape.values())} mesh, data shard "
+                                     f"{data_rank} of {n_data}"))
 
     def save_and_export(current_step: int):
         """The trainer's state + the diffusers-layout ControlNet AND its EMA
         twin — the reference's save hook writes both controlnet/ and
         controlnet_ema/ (train...blender_14.py:940-947)."""
-        cdir = ckpt.save_checkpoint(args.output_dir, current_step, trainer, args.checkpoints_total_limit)
-        ckpt.export_diffusers(trainer.state.controlnet_params, "controlnet", os.path.join(cdir, "controlnet"))
-        if trainer.state.ema_params is not None:
-            ckpt.export_diffusers(trainer.state.ema_params, "controlnet", os.path.join(cdir, "controlnet_ema"))
+        sd = trainer.state_dict()
+        cdir = ckpt.save_checkpoint(args.output_dir, current_step, sd, args.checkpoints_total_limit, mesh=mesh)
+        if lead:
+            ckpt.export_diffusers(sd["controlnet"], "controlnet", os.path.join(cdir, "controlnet"))
+            if sd["ema"] is not None:
+                ckpt.export_diffusers(sd["ema"], "controlnet", os.path.join(cdir, "controlnet_ema"))
 
     try:
         # Resume fast-forward: continue the data order of an uninterrupted run
@@ -240,16 +258,19 @@ def train_loop(args, trainer, frozen, cn_dtypes, dataset, val_dataset, logger) -
         start_epoch, skip = divmod(step, bpe)
         for epoch in range(start_epoch, args.num_train_epochs):
             for batch in loader.epoch(seed=args.seed + epoch, skip_batches=skip if epoch == start_epoch else 0):
-                metrics = trainer.step(batch)
+                metrics = trainer.step(batch) if mesh is None else trainer.step(batch, local_rows=True)
                 step = int(trainer.state.step)
-                logger.log(step, metrics)
-                if step % 50 == 0:
-                    print(f"step {step} loss {float(metrics['loss']):.4f}")
+                if lead:
+                    logger.log(step, metrics)
+                    if step % 50 == 0:
+                        print(f"step {step} loss {float(metrics['loss']):.4f}")
                 if step and step % args.checkpointing_steps == 0:
                     save_and_export(step)
                     saved = step
                 if args.validation_steps and step and step % args.validation_steps == 0:
-                    run_validation(args, trainer, frozen, cn_dtypes, val_dataset, step)
+                    ema = trainer.whole_ema()  # a collective under a mesh: on every rank
+                    if lead:
+                        run_validation(args, trainer, frozen, cn_dtypes, val_dataset, step, ema)
                 if args.max_train_steps and step >= args.max_train_steps:
                     break
             if args.max_train_steps and step >= args.max_train_steps:
@@ -258,20 +279,23 @@ def train_loop(args, trainer, frozen, cn_dtypes, dataset, val_dataset, logger) -
         loader.close()
     if saved != step:  # the state of `step` is on disk already if it was just saved
         ckpt.save_checkpoint(args.output_dir, step, trainer, args.checkpoints_total_limit)
-    print(f"done at step {step}")
+    if lead:
+        print(f"done at step {step}")
     return step
 
 
-def validation_params(trainer, frozen, cn_dtypes):
+def validation_params(trainer, frozen, cn_dtypes, ema=None):
     """The pipeline's parameters from the trainer: the frozen models and the
     EMA (else the live) ControlNet, its float32 masters cast back to the
-    dtypes the ControlNet was built in."""
+    dtypes the ControlNet was built in. ema: the whole EMA where the
+    trainer's is split over a mesh (Trainer.whole_ema)."""
     import torch
 
     from posetraj_torch.core.params import cast_like
 
     st = trainer.state
-    controlnet = st.ema_params if st.ema_params is not None else st.controlnet_params
+    ema = ema if ema is not None else st.ema_params
+    controlnet = ema if ema is not None else st.controlnet_params
     with torch.no_grad():
         controlnet = cast_like(controlnet, cn_dtypes)
     return {"unet": frozen["unet"], "vae": frozen["vae"], "clip": frozen["clip"], "controlnet": controlnet}
@@ -290,7 +314,7 @@ def validation_sample(pipe, sample, args):
     )[0]
 
 
-def run_validation(args, trainer, frozen, cn_dtypes, val_dataset, current_step: int) -> str:
+def run_validation(args, trainer, frozen, cn_dtypes, val_dataset, current_step: int, ema=None) -> str:
     """Render held-out samples (val_dataset, --validation_folder) with the
     in-training ControlNet and save side-by-side GIFs (the reference's
     eyeball-validation loop, train_svd_traj_blender_14.py:1418-1495).
@@ -298,7 +322,7 @@ def run_validation(args, trainer, frozen, cn_dtypes, val_dataset, current_step: 
     from posetraj_torch.data import export
     from posetraj_torch.pipeline import SVDControlNetPipeline
 
-    pipe = SVDControlNetPipeline(validation_params(trainer, frozen, cn_dtypes), trainer.bundle,
+    pipe = SVDControlNetPipeline(validation_params(trainer, frozen, cn_dtypes, ema), trainer.bundle,
                                  device=trainer.device, compute_dtype=trainer.compute_dtype)
     vdir = os.path.join(args.output_dir, f"validation-{current_step}")
     for i in range(min(args.num_validation_samples, len(val_dataset))):
@@ -314,16 +338,36 @@ def run_validation(args, trainer, frozen, cn_dtypes, val_dataset, current_step: 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.distributed or args.n_model_shards > 1:
-        raise NotImplementedError(f"--distributed / --n_model_shards {args.n_model_shards}: {NO_PARALLEL}")
+    device = "cpu" if args.platform == "cpu" else None
+    mesh = None
+    if args.distributed:
+        from posetraj_torch.parallel.mesh import initialize_distributed, make_mesh
+
+        device = initialize_distributed(args.coordinator_address, args.num_processes, args.process_id, device)
+        mesh = make_mesh(n_model=args.n_model_shards, device=device)
+    elif args.n_model_shards > 1:
+        raise ValueError(f"--n_model_shards {args.n_model_shards} needs --distributed: one process a device")
+    try:
+        _run(args, device, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh):
+    """main's work once the process group (if any) is up."""
     from posetraj_torch.train import checkpoints as ckpt
     from posetraj_torch.utils import MetricsLogger
 
-    device = "cpu" if args.platform == "cpu" else None
-    trainer, frozen, cn_dtypes = build_trainer(args, device)
+    lead = mesh is None or mesh.rank == 0
+    trainer, frozen, cn_dtypes = build_trainer(args, device, mesh)
     os.makedirs(args.output_dir, exist_ok=True)
-    write_param_audit(os.path.join(args.output_dir, "rec_para.txt"), trainer, frozen)
-    logger = MetricsLogger(args.output_dir)
+    logger = None
+    if lead:
+        write_param_audit(os.path.join(args.output_dir, "rec_para.txt"), trainer, frozen)
+        logger = MetricsLogger(args.output_dir)
 
     if args.resume_from_checkpoint:
         path = (
@@ -333,7 +377,8 @@ def main(argv=None):
         )
         if path:
             ckpt.restore_checkpoint(path, trainer)
-            print(f"resumed from {path} at step {int(trainer.state.step)}")
+            if lead:
+                print(f"resumed from {path} at step {int(trainer.state.step)}")
 
     dataset = build_dataset(args)
     if args.validation_folder:
@@ -347,12 +392,14 @@ def main(argv=None):
     else:
         # Reference behavior is a dedicated held-out folder; rendering train
         # samples cannot reveal overfitting — warn but stay usable.
-        print("WARNING: no --validation_folder; validation renders use TRAINING samples")
+        if lead:
+            print("WARNING: no --validation_folder; validation renders use TRAINING samples")
         val_dataset = dataset
     try:
         train_loop(args, trainer, frozen, cn_dtypes, dataset, val_dataset, logger)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """EDM ControlNet trainer: the loss, the train step with gradient
 accumulation and EMA, and the `Trainer` entry point (port of
-posetraj_tpu/train/trainer.py, single device). Only the ControlNet trains;
-the UNet, the VAE and CLIP are frozen.
+posetraj_tpu/train/trainer.py), on one device or over a ("data", "model")
+mesh (parallel/mesh.py). Only the ControlNet trains; the UNet, the VAE and
+CLIP are frozen.
 
 Training math (the reference's train_svd_traj_blender_14.py:1204-1384):
   * VAE-encode the frames with .sample(), times scaling_factor
@@ -50,6 +51,19 @@ accumulation) from one captured CUDA graph (`MicroStepGraph`), the
 counterpart of the JAX package's jitted step; the sync step's clip, AdamW
 and EMA run eagerly, with foreach ops. `Trainer.step_eager` and the CPU run
 the same micro-step from the host.
+
+Under a mesh (`Trainer(mesh=)`, one process a device) the batch is the
+global one: each rank computes its data coordinate's rows, with its rows
+of the global batch's draws, made alike on every rank from the one seed.
+The micro-step (and its graph) runs on whole float32 weights; the sync step
+all-reduces the float32 accumulator's mean over "data" once a window
+(JAX's mean over the global batch), slices each leaf that
+parallel/mesh.param_shardings splits over "model" to this rank's block,
+clips by the global norm (the split leaves' squares summed over "model",
+each replicated leaf counted once), runs the optimizer and the EMA on the
+blocks (the masters at rest: `TrainState.shards`) and all-gathers the
+blocks back into the whole weights, outside the graph. Every collective is
+one of all_reduce and all_gather, which NCCL and gloo both take.
 """
 
 from __future__ import annotations
@@ -63,14 +77,16 @@ import torch
 
 from posetraj_torch.configs import EDMConfig, TrainConfig, kernel_config, use_kernels
 from posetraj_torch.core.init import default_compute_dtype, device_constant, resolve_device
-from posetraj_torch.core.params import ema_decay_schedule, ema_update, leaves, tree_map
-from posetraj_torch.diffusion.edm import edm_loss_weight, edm_scalings, rand_cosine_interpolated
+from posetraj_torch.core.params import chunks, ema_decay_schedule, ema_update, flatten_dict, leaves, tree_map
+from posetraj_torch.diffusion.edm import cosine_interpolated_sigmas, edm_loss_weight, edm_scalings, stratified_uniform
 from posetraj_torch.models import clip as clip_m
 from posetraj_torch.models import controlnet as cn
 from posetraj_torch.models import unet as unet_m
 from posetraj_torch.models import vae as vae_m
 from posetraj_torch.ops.primitives import set_float32_precision
 from posetraj_torch.ops.resize import resize_antialias
+from posetraj_torch.parallel.mesh import (BatchRows, batch_sharding, gather_batch_rows, global_batch_rows,
+                                          param_shardings)
 from posetraj_torch.pipeline.svd_controlnet import resolve_kernels
 
 
@@ -154,8 +170,12 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
     [-1, 1]; motion_values (B,); the hint variant's bbox_trajectories
     (B, F, H, W, 3) in [-1, 1], cam_parameter (B, F, 12), rot_id (B,)
     integer; latents (B, F, h, w, 4) and clip_emb (B, 1, D) where the frozen
-    encodes ran outside the step (encode_conditioning). randoms:
-    draw_step_randoms' dict."""
+    encodes ran outside the step (encode_conditioning); where the batch is
+    some rows of a larger one (a mesh's data coordinate, Trainer._prepare),
+    context_table (B_glob, 1, D), the whole batch's CLIP context after
+    dropout, and context_rows (B,), the batch's rows in it (quirk Q7).
+    randoms: draw_step_randoms' dict, or with t_sigma, the batch's rows of
+    the whole batch's stratified draws, in place of u_sigma."""
     u, c = bundle.unet, bundle.controlnet
     pixel_values = batch["pixel_values"]
     b, f = pixel_values.shape[:2]
@@ -165,7 +185,8 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
         latents = _vae_encode_frames(frozen_params, bundle, pixel_values, randoms["vae_eps"])
 
     noise = randoms["noise"].float()
-    sigmas = rand_cosine_interpolated(randoms["u_sigma"], EDMConfig())
+    t_sigma = randoms["t_sigma"] if "t_sigma" in randoms else stratified_uniform(randoms["u_sigma"].float())
+    sigmas = cosine_interpolated_sigmas(t_sigma, EDMConfig())
     sig = sigmas.reshape(b, 1, 1, 1, 1)
     cond_latents = (latents + noise * tcfg.noise_aug_strength)[:, 0] / bundle.vae.scaling_factor
     noisy_latents = latents + noise * sig
@@ -192,38 +213,40 @@ def edm_training_loss(controlnet_params: Dict, frozen_params: Dict, bundle, tcfg
 
     remat = _remat_mode(tcfg)
     bbox = batch.get("bbox_trajectories")
-    down_res, mid_res = cn.controlnet_forward(
-        controlnet_params, c, inp8, timesteps, clip_emb, time_ids, controlnet_cond=batch["trajectories"],
-        bbox_cond=None if bbox is None else bbox.to(compute_dtype), camera_cond=batch.get("cam_parameter"),
-        rot_id=batch.get("rot_id"), compute_dtype=compute_dtype, remat=remat,
-    )
-    model_pred = unet_m.unet_forward(frozen_params["unet"], u, inp8, timesteps, clip_emb, time_ids, down_res,
-                                     mid_res, compute_dtype=compute_dtype, remat=remat).float()
-    denoised = model_pred * c_out + c_skip * noisy_latents
-    w = edm_loss_weight(sig)
-    loss = (w * (denoised - latents) ** 2).reshape(b, -1).mean(dim=1).mean()
-    metrics = {"loss_video": loss.detach(), "sigma_mean": sigmas.mean()}
+    rows = BatchRows(batch["context_table"], batch["context_rows"]) if "context_table" in batch else None
+    with global_batch_rows(rows):  # the Q7 index of rows of a larger batch (parallel/mesh.py)
+        down_res, mid_res = cn.controlnet_forward(
+            controlnet_params, c, inp8, timesteps, clip_emb, time_ids, controlnet_cond=batch["trajectories"],
+            bbox_cond=None if bbox is None else bbox.to(compute_dtype), camera_cond=batch.get("cam_parameter"),
+            rot_id=batch.get("rot_id"), compute_dtype=compute_dtype, remat=remat,
+        )
+        model_pred = unet_m.unet_forward(frozen_params["unet"], u, inp8, timesteps, clip_emb, time_ids, down_res,
+                                         mid_res, compute_dtype=compute_dtype, remat=remat).float()
+        denoised = model_pred * c_out + c_skip * noisy_latents
+        w = edm_loss_weight(sig)
+        loss = (w * (denoised - latents) ** 2).reshape(b, -1).mean(dim=1).mean()
+        metrics = {"loss_video": loss.detach(), "sigma_mean": sigmas.mean()}
 
-    if tcfg.use_spatial_loss:
-        # One random frame through the UNet again with its slice of the
-        # residuals, x0.5; the frame axis is sliced per sample.
-        idx = randoms["frame_idx"].reshape(1)
+        if tcfg.use_spatial_loss:
+            # One random frame through the UNet again with its slice of the
+            # residuals, x0.5; the frame axis is sliced per sample.
+            idx = randoms["frame_idx"].reshape(1)
 
-        def frame(t):
-            return t.reshape(b, f, *t.shape[1:]).index_select(1, idx)[:, 0]
+            def frame(t):
+                return t.reshape(b, f, *t.shape[1:]).index_select(1, idx)[:, 0]
 
-        pred_sp = unet_m.unet_forward(
-            frozen_params["unet"], u, inp8.index_select(1, idx), timesteps, clip_emb, time_ids,
-            tuple(frame(r) for r in down_res), frame(mid_res), compute_dtype=compute_dtype,
-        ).float()[:, 0]
-        denoised_sp = pred_sp * c_out[:, 0] + c_skip[:, 0] * noisy_latents.index_select(1, idx)[:, 0]
-        tgt_sp = latents.index_select(1, idx)[:, 0]
-        loss_sp = (w[:, 0] * (denoised_sp - tgt_sp) ** 2).reshape(b, -1).mean(dim=1).mean()
-        loss = loss + tcfg.spatial_loss_weight * loss_sp
-        metrics["loss_spatial"] = loss_sp.detach()
+            pred_sp = unet_m.unet_forward(
+                frozen_params["unet"], u, inp8.index_select(1, idx), timesteps, clip_emb, time_ids,
+                tuple(frame(r) for r in down_res), frame(mid_res), compute_dtype=compute_dtype,
+            ).float()[:, 0]
+            denoised_sp = pred_sp * c_out[:, 0] + c_skip[:, 0] * noisy_latents.index_select(1, idx)[:, 0]
+            tgt_sp = latents.index_select(1, idx)[:, 0]
+            loss_sp = (w[:, 0] * (denoised_sp - tgt_sp) ** 2).reshape(b, -1).mean(dim=1).mean()
+            loss = loss + tcfg.spatial_loss_weight * loss_sp
+            metrics["loss_spatial"] = loss_sp.detach()
 
-    metrics["loss"] = loss.detach()
-    return loss, metrics
+        metrics["loss"] = loss.detach()
+        return loss, metrics
 
 
 def _check_supported(tcfg: TrainConfig) -> None:
@@ -263,7 +286,7 @@ class AdamWBF16(torch.optim.Optimizer):
                     st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
                     st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.bfloat16)
                 st["step"] += 1
-            for chunk in _chunks(live, self.CHUNK):
+            for chunk in chunks(live, self.CHUNK):
                 count = self.state[chunk[0]]["step"]
                 c1, c2 = 1.0 - _float32_power(b1, count), 1.0 - _float32_power(b2, count)
                 grads = [p.grad.float() for p in chunk]
@@ -297,20 +320,6 @@ class AdamWBF16(torch.optim.Optimizer):
                 st[k] = st[k].to(torch.bfloat16)
 
 
-def _chunks(tensors: List[torch.Tensor], limit: int):
-    """Consecutive groups of `tensors` of at most `limit` elements each (a
-    larger tensor alone)."""
-    group, n = [], 0
-    for t in tensors:
-        if group and n + t.numel() > limit:
-            yield group
-            group, n = [], 0
-        group.append(t)
-        n += t.numel()
-    if group:
-        yield group
-
-
 def make_optimizer(tcfg: TrainConfig, params):
     """AdamW with linear warmup to a constant learning rate: (optimizer,
     scheduler). float32 moments (torch.optim.AdamW), or bf16 ones under
@@ -336,10 +345,16 @@ def grad_accum_dtype(tcfg: TrainConfig) -> torch.dtype:
 
 @dataclasses.dataclass
 class TrainState:
-    """`step` counts micro-steps. `grad_acc` sums the micro-gradients of the
-    current accumulation window, a buffer a master (made on first use);
-    `loss_params` are the bf16 copies the loss is differentiated against
-    under grads_bf16 (else None)."""
+    """`step` counts micro-steps. `controlnet_params` are the whole float32
+    weights the micro-step runs on (the masters on one device). `grad_acc`
+    sums the micro-gradients of the current accumulation window, a buffer a
+    weight (made on first use); `loss_params` are the bf16 copies the loss
+    is differentiated against under grads_bf16 (else None). Under a mesh,
+    `shardings` holds each leaf's parallel.mesh.Sharding and `shards` the
+    masters at rest, this rank's block of each split leaf (the whole weight
+    itself where it is replicated), which the optimizer and the EMA
+    (`ema_params`, in blocks alike) update. `update_norm`: the global norm
+    of the last window's mean gradient, before clipping."""
 
     step: int
     controlnet_params: Dict
@@ -348,6 +363,14 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     grad_acc: Optional[List[torch.Tensor]] = None
     loss_params: Optional[Dict] = None
+    shardings: Optional[list] = None
+    shards: Optional[List[torch.Tensor]] = None
+    update_norm: Optional[torch.Tensor] = None
+
+    def masters(self) -> List[torch.Tensor]:
+        """What the optimizer updates: the shards under a mesh, else the
+        weights."""
+        return self.shards if self.shards is not None else list(leaves(self.controlnet_params))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -389,13 +412,34 @@ def micro_step(state: TrainState, frozen_params: Dict, bundle, tcfg: TrainConfig
     return metrics
 
 
-def sync_step(state: TrainState, tcfg: TrainConfig) -> None:
+def clip_by_global_norm(masters: List[torch.Tensor], max_norm: float, shardings=None, mesh=None) -> torch.Tensor:
+    """clip_grad_norm_ over the masters' gradients; returns the norm before
+    clipping. Where some masters are blocks of leaves split over "model",
+    the global norm sums their squares over the model group and counts each
+    replicated leaf once, as every rank holds it whole."""
+    if not shardings or not any(s.sharded for s in shardings):
+        return torch.nn.utils.clip_grad_norm_(masters, max_norm)
+    grads = [p.grad for p in masters]
+    norms = torch._foreach_norm(grads, 2)
+    split = torch.stack([n for n, s in zip(norms, shardings) if s.sharded]).square().sum().reshape(1)
+    mesh.all_reduce([split], "model")
+    total = torch.linalg.vector_norm(torch.stack([*(n for n, s in zip(norms, shardings) if not s.sharded),
+                                                  split[0].sqrt()]))
+    torch._foreach_mul_(grads, torch.clamp(max_norm / (total + 1e-6), max=1.0))
+    return total
+
+
+def sync_step(state: TrainState, tcfg: TrainConfig, mesh=None) -> None:
     """The update at the end of an accumulation window: the accumulator's
     float32 mean is clipped to max_grad_norm and applied by the optimizer,
     the scheduler steps, the accumulator is zeroed and the EMA steps (decay
-    0 on the first update, then diffusers' warmup ramp). foreach ops."""
+    0 on the first update, then diffusers' warmup ramp). foreach ops.
+    Under a mesh the mean is also taken over "data" and the update runs on
+    the rank's blocks, then gathered into the whole weights (module
+    docstring)."""
     accum = tcfg.gradient_accumulation_steps
-    masters = list(leaves(state.controlnet_params))
+    masters = state.masters()
+    shardings = state.shardings or [None] * len(masters)
     acc = _grad_acc(state, tcfg)
     with torch.no_grad():
         if acc[0].dtype == torch.float32:
@@ -404,26 +448,30 @@ def sync_step(state: TrainState, tcfg: TrainConfig) -> None:
         else:
             means = [a.float() for a in acc]
             torch._foreach_div_(means, float(accum))
-        for p, m in zip(masters, means):
-            p.grad = m
-    torch.nn.utils.clip_grad_norm_(masters, tcfg.max_grad_norm)
+        if mesh is not None:
+            mesh.all_reduce(means, "data", mean=True)
+        for p, m, s in zip(masters, means, shardings):
+            p.grad = s.local(m) if s is not None and s.sharded else m
+    state.update_norm = clip_by_global_norm(masters, tcfg.max_grad_norm, state.shardings, mesh)
     state.optimizer.step()
     state.scheduler.step()
     for p in masters:
         p.grad = None
     with torch.no_grad():
         torch._foreach_zero_(acc)
-    if state.ema_params is not None:
-        ema_update(state.ema_params, state.controlnet_params,
-                   ema_decay_schedule(state.step // accum, tcfg.ema_decay))
+        if state.ema_params is not None:
+            ema_update(state.ema_params, masters, ema_decay_schedule(state.step // accum, tcfg.ema_decay))
+        for w, s, block in zip(leaves(state.controlnet_params), shardings, masters):
+            if s is not None and s.sharded:
+                s.gather(block, out=w)
 
 
-def advance(state: TrainState, tcfg: TrainConfig) -> None:
+def advance(state: TrainState, tcfg: TrainConfig, mesh=None) -> None:
     """Counts a micro-step; every gradient_accumulation_steps-th one ends
     its window with sync_step."""
     state.step += 1
     if state.step % tcfg.gradient_accumulation_steps == 0:
-        sync_step(state, tcfg)
+        sync_step(state, tcfg, mesh)
 
 
 def apply_micro_grads(state: TrainState, tcfg: TrainConfig, grads) -> None:
@@ -441,6 +489,18 @@ def train_step(state: TrainState, frozen_params: Dict, bundle, tcfg: TrainConfig
     metrics = micro_step(state, frozen_params, bundle, tcfg, batch, randoms, compute_dtype)
     advance(state, tcfg)
     return metrics
+
+
+def _like(tree, flat: List[torch.Tensor]):
+    """`tree`'s structure with its leaves replaced, in order, by `flat`."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _is_moment(v) -> bool:
+    """A per-element optimizer state tensor (Adam's moments), shaped as its
+    parameter; step counts are 0-d or integers."""
+    return isinstance(v, torch.Tensor) and v.ndim > 0
 
 
 class MicroStepGraph:
@@ -527,7 +587,7 @@ class MicroStepGraph:
 
 
 class Trainer:
-    """Single-device training entry point: `Trainer(bundle, tcfg, frozen_params,
+    """Training entry point: `Trainer(bundle, tcfg, frozen_params,
     controlnet_params)`, then `.step(batch)` per micro-step.
 
     frozen_params {"unet", "vae", "clip"} and controlnet_params are on
@@ -542,15 +602,22 @@ class Trainer:
 
     On the card `step` replays the micro-step from one captured CUDA graph
     (`self.graph`, a MicroStepGraph); `step_eager` runs it from the host, on
-    the same state and generator, and is what the CPU runs."""
+    the same state and generator, and is what the CPU runs.
+
+    mesh: a parallel.mesh.Mesh (make_mesh, on every rank of the job); the
+    trainer runs on its device, and every rank calls `step`, `state_dict`
+    and `whole_ema` alike (module docstring). A step's loss metrics are
+    means over "data". Its `grad_norm` is the global micro-gradient's where
+    n_data is 1; at n_data > 1 that gradient is never formed (the data
+    all-reduce runs once a window), so `grad_norm` is the window's
+    (`TrainState.update_norm`) where a window is one micro-step, and absent
+    otherwise."""
 
     def __init__(self, bundle, tcfg: TrainConfig, frozen_params: Dict, controlnet_params: Dict, mesh=None,
                  device=None, compute_dtype=None):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): the parallel layer's data- and tensor-parallel mesh "
-                                      "(parallel/mesh.py) is not in the port yet")
         _check_supported(tcfg)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         bundle = resolve_kernels(bundle)
         if self.device.type == "cuda":
             set_float32_precision()
@@ -570,77 +637,156 @@ class Trainer:
             frozen = {"unet": frozen["unet"]}
         self.frozen_params = frozen
         params = tree_map(lambda t: t.detach().to(torch.float32, copy=True).requires_grad_(True), controlnet_params)
-        ema = tree_map(lambda t: t.detach().clone(), params) if tcfg.use_ema else None
-        opt, sched = make_optimizer(tcfg, leaves(params))
+        masters, shardings = list(leaves(params)), None
+        if mesh is not None:
+            shardings = list(flatten_dict(param_shardings(params, mesh)).values())
+            masters = [s.local(p.detach()) if s.sharded else p for s, p in zip(shardings, masters)]
+        ema = _like(params, [m.detach().clone() for m in masters]) if tcfg.use_ema else None
+        opt, sched = make_optimizer(tcfg, masters)
         loss_params = (tree_map(lambda t: t.detach().to(torch.bfloat16).requires_grad_(True), params)
                        if tcfg.grads_bf16 else None)
         self.state = TrainState(step=0, controlnet_params=params, ema_params=ema, optimizer=opt, scheduler=sched,
-                                loss_params=loss_params)
+                                loss_params=loss_params, shardings=shardings,
+                                shards=masters if mesh is not None else None)
         _grad_acc(self.state, tcfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(tcfg.seed)
         self.graph = MicroStepGraph()
 
-    def _prepare(self, batch: Dict):
+    def _prepare(self, batch: Dict, local_rows: bool = False):
         """The batch on the device (integers as int64, the rest float32),
         this micro-step's draws and, under encode_outside_step, the frozen
-        encodes."""
+        encodes. Under a mesh: this rank's rows of the global batch (or,
+        with local_rows, the batch as given, already those rows) and of the
+        global batch's draws; at n_data > 1 also the rows of the global
+        batch's strata (t_sigma) and its Q7 context (edm_training_loss), so
+        that the rank computes its rows of what one device computes on the
+        global batch."""
+        rows = None if self.mesh is None else batch_sharding(self.mesh, 1)
+
         def put(v):
-            t = torch.as_tensor(v).to(self.device)
+            t = torch.as_tensor(v)
+            if rows is not None and not local_rows:
+                t = rows.local(t)
+            t = t.to(self.device)
             return t.float() if t.is_floating_point() else t.long()
 
         batch = {k: put(v) for k, v in batch.items()}
         b, f, hh, ww = batch["pixel_values"].shape[:4]
         sf = self.bundle.vae.scale_factor
-        randoms = draw_step_randoms(self.generator, b, f, (hh // sf, ww // sf, self.bundle.vae.latent_channels),
-                                    self.device)
+        randoms = draw_step_randoms(self.generator, b * (rows.size if rows else 1), f,
+                                    (hh // sf, ww // sf, self.bundle.vae.latent_channels), self.device)
+        split = rows is not None and rows.sharded
+        if split:  # the whole batch's strata, of which this rank takes its rows
+            randoms["t_sigma"] = stratified_uniform(randoms.pop("u_sigma").float())
+        drop_p = randoms["drop_p"]
+        if rows is not None:
+            randoms = {k: v if k == "frame_idx" else rows.local(v) for k, v in randoms.items()}
         if self.encode_params is not None:
             batch.update(encode_conditioning(self.encode_params, self.bundle, batch["pixel_values"],
                                              randoms["vae_eps"], self.compute_dtype))
+        if split:  # quirk Q7 reads the whole batch's CLIP context (after dropout)
+            if "clip_emb" not in batch:
+                with torch.no_grad():
+                    batch["clip_emb"] = encode_image_clip_train(self.frozen_params, self.bundle,
+                                                                batch["pixel_values"][:, 0], self.compute_dtype)
+            ctx = gather_batch_rows(self.mesh, batch["clip_emb"])
+            table = ctx.table
+            if self.tcfg.conditioning_dropout_prob:
+                table = torch.where((drop_p < 2 * self.tcfg.conditioning_dropout_prob).reshape(-1, 1, 1), 0.0, table)
+            batch["context_table"], batch["context_rows"] = table, ctx.rows
         return batch, randoms
 
-    def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def step(self, batch: Dict, local_rows: bool = False) -> Dict[str, torch.Tensor]:
         """One micro-step (and, at the end of an accumulation window, the
-        update): on the card from the captured graph, on the CPU eagerly."""
+        update): on the card from the captured graph, on the CPU eagerly.
+        local_rows: under a mesh, `batch` holds this rank's rows already
+        (a loader's slice for its data coordinate), not the global batch."""
         if self.device.type != "cuda":
-            return self.step_eager(batch)
+            return self.step_eager(batch, local_rows)
         with use_kernels(self.bundle.kernels):
-            batch, randoms = self._prepare(batch)
-            metrics = self.graph.run(self, batch, randoms)
-            advance(self.state, self.tcfg)
-        return metrics
+            batch, randoms = self._prepare(batch, local_rows)
+            return self._advance(self.graph.run(self, batch, randoms))
 
-    def step_eager(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def step_eager(self, batch: Dict, local_rows: bool = False) -> Dict[str, torch.Tensor]:
         """One micro-step issued from the host: the reference the graph is
         held against."""
         with use_kernels(self.bundle.kernels):
-            batch, randoms = self._prepare(batch)
-            return train_step(self.state, self.frozen_params, self.bundle, self.tcfg, batch, randoms,
-                              self.compute_dtype)
+            batch, randoms = self._prepare(batch, local_rows)
+            return self._advance(micro_step(self.state, self.frozen_params, self.bundle, self.tcfg, batch, randoms,
+                                            self.compute_dtype))
+
+    def _advance(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """advance, with the metrics made global under a mesh (class
+        docstring)."""
+        mesh = self.mesh
+        if mesh is not None:
+            keys = [k for k in metrics if k != "grad_norm"]
+            means = torch.stack([metrics[k].float() for k in keys])
+            mesh.all_reduce([means], "data", mean=True)
+            metrics.update(zip(keys, means.unbind()))
+            if mesh.n_data > 1:
+                del metrics["grad_norm"]
+        advance(self.state, self.tcfg, mesh)
+        if mesh is not None and mesh.n_data > 1 and self.tcfg.gradient_accumulation_steps == 1:
+            metrics["grad_norm"] = self.state.update_norm
+        return metrics
+
+    def whole_ema(self) -> Optional[Dict]:
+        """The EMA as whole tensors (gathered over "model" under a mesh, on
+        every rank), or None without one."""
+        st = self.state
+        if st.ema_params is None or st.shardings is None:
+            return st.ema_params
+        return _like(st.ema_params, [s.gather(e) for s, e in zip(st.shardings, leaves(st.ema_params))])
 
     def state_dict(self) -> Dict:
         """What a checkpoint holds: the step, the float32 masters, the EMA,
         the accumulator, the optimizer's and scheduler's state and the
-        generator's (references to the live tensors; torch.save copies)."""
-        return {"step": self.state.step, "controlnet": self.state.controlnet_params,
-                "ema": self.state.ema_params, "grad_acc": self.state.grad_acc,
-                "optimizer": self.state.optimizer.state_dict(), "scheduler": self.state.scheduler.state_dict(),
-                "generator": self.generator.get_state()}
+        generator's (references to the live tensors; torch.save copies).
+        Under a mesh (a collective: every rank calls it) the same dict as
+        an unsharded trainer's at this step: split leaves, their EMA and
+        Adam moments gathered whole, the accumulator's mean over "data"."""
+        st = self.state
+        sd = {"step": st.step, "controlnet": st.controlnet_params, "ema": st.ema_params, "grad_acc": st.grad_acc,
+              "optimizer": st.optimizer.state_dict(), "scheduler": st.scheduler.state_dict(),
+              "generator": self.generator.get_state()}
+        if self.mesh is None:
+            return sd
+        with torch.no_grad():
+            sd["ema"] = self.whole_ema()
+            acc = [a.to(torch.float32, copy=True) for a in st.grad_acc]
+            self.mesh.all_reduce(acc, "data", mean=True)
+            sd["grad_acc"] = [a.to(g.dtype) for a, g in zip(acc, st.grad_acc)]
+            opt = sd["optimizer"]
+            opt["state"] = {i: {k: st.shardings[i].gather(v) if _is_moment(v) else v for k, v in entry.items()}
+                            for i, entry in opt["state"].items()}
+        return sd
 
     def load_state_dict(self, sd: Dict) -> None:
-        """Restore `state_dict()`'s contents. Tensors are copied into the
+        """Restore `state_dict()`'s contents, the unsharded layout, into
+        this trainer's (any mesh's) layout. Tensors are copied into the
         trainer's own in place, so a captured graph, which holds their
         addresses, stays valid."""
         st = self.state
+        local = st.shardings or [None] * len(st.masters())
         with torch.no_grad():
-            for name, dst in (("controlnet", st.controlnet_params), ("ema", st.ema_params), ("grad_acc", st.grad_acc)):
+            for name, dst, split in (("controlnet", st.controlnet_params, False), ("ema", st.ema_params, True),
+                                     ("grad_acc", st.grad_acc, False)):
                 src = list(leaves(sd[name] or {}))
                 dst = list(leaves(dst or {}))
                 if len(src) != len(dst):
                     raise ValueError(f"checkpoint {name}: {len(src)} tensors, the trainer has {len(dst)}")
-                for d, s in zip(dst, src):
-                    d.copy_(s)
-        st.optimizer.load_state_dict(sd["optimizer"])
+                for d, s, sh in zip(dst, src, local):
+                    d.copy_(sh.local(s) if split and sh is not None else s)
+            for block, w, sh in zip(st.masters(), leaves(st.controlnet_params), local):
+                if sh is not None and sh.sharded:
+                    block.copy_(sh.local(w))
+        opt = sd["optimizer"]
+        if st.shardings is not None:
+            opt = dict(opt, state={i: {k: st.shardings[i].local(v) if _is_moment(v) else v for k, v in entry.items()}
+                                   for i, entry in opt["state"].items()})
+        st.optimizer.load_state_dict(opt)
         st.scheduler.load_state_dict(sd["scheduler"])
         st.step = int(sd["step"])
         self.generator.set_state(sd["generator"])

@@ -35,7 +35,8 @@ split form (the statistics of two W blocks summed, then the apply of each)
 takes A's tolerance, its float64 sums within 1e-4 of the plain float32
 statistics; generate_sharded on a (1, 1) mesh launches what generate()
 launches with C and D off and lands within 2e-2 relative RMS of its
-latents.
+latents. Trainer(mesh=) on a (1, 1) mesh through a one-rank NCCL group
+is bit for bit the unsharded Trainer.
 """
 
 import math
@@ -864,10 +865,10 @@ def _train_bundle(variant="base", kernels=None):
                        clip=configs.CLIPVisionConfig.tiny(), kernels=kernels)
 
 
-def _trainer(variant="base", **tcfg_kw):
-    """A Trainer on the card over _train_bundle, its zero-initialised heads
-    and the cam projection given small random values so that the hint and
-    its condition reach the loss."""
+def _trainer(variant="base", mesh=None, **tcfg_kw):
+    """A Trainer on the card over _train_bundle (on `mesh`, if given), its
+    zero-initialised heads and the cam projection given small random values
+    so that the hint and its condition reach the loss."""
     from posetraj_torch.configs import TrainConfig
     from posetraj_torch.pipeline import init_params
     from posetraj_torch.train import Trainer
@@ -888,7 +889,7 @@ def _trainer(variant="base", **tcfg_kw):
 
     frozen = {k: params[k] for k in ("unet", "vae", "clip")}
     return Trainer(bundle, TrainConfig(num_frames=2, height=256, width=256, **tcfg_kw), frozen,
-                   live(params["controlnet"]))
+                   live(params["controlnet"]), mesh=mesh)
 
 
 def _train_batch(seed, size=256, **extra):
@@ -1059,6 +1060,40 @@ def test_cuda_train_variant_matches_plain(variant):
     num = sum(float((a.float() - b).square().sum()) for a, b in zip(got, want))
     den = sum(float(b.square().sum()) for b in want)
     assert 0 < den and (num / den) ** 0.5 <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_1x1_trainer_matches_unsharded():
+    """Trainer(mesh=) on a (1, 1) mesh through a one-rank NCCL group, four
+    graphed micro-steps (two updates), against the unsharded Trainer from
+    the same state and draws: every collective has size 1, so losses,
+    masters, EMA, accumulator and moments are equal bit for bit, and the
+    same kernels launch."""
+    _need_cuda()
+    import socket
+
+    import torch.distributed as dist
+
+    from posetraj_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        runs = []
+        for mesh in (None, make_mesh(1, 1)):
+            trainer = _trainer(mesh=mesh, lr_warmup_steps=1, learning_rate=1e-4)
+            _native.reset_launches()
+            losses = [float(trainer.step(_train_batch(40 + i))["loss"]) for i in range(4)]
+            torch.cuda.synchronize()
+            runs.append((losses, dict(_native.LAUNCHES), _copy_state(trainer)))
+            del trainer
+    finally:
+        dist.destroy_process_group()
+    (want, want_n, want_state), (got, got_n, got_state) = runs
+    assert got == want and got_n == want_n and got_n["groupnorm"] > 0 and got_n["flash_bwd"] > 0
+    assert _max_diff(got_state, want_state) == 0
 
 
 @pytest.mark.cuda

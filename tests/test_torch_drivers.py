@@ -15,8 +15,9 @@ JAX package, fed the JAX package's preprocessing and loader:
   and a validation GIF are written; the final state is bitwise that of a
   Trainer fed the JAX PrefetchLoader's batches of the same fixture, and the
   exports are its parameters; a run resumed at step 2 ends bitwise at the
-  uninterrupted run's step-4 state; --distributed and --n_model_shards 2
-  raise.
+  uninterrupted run's step-4 state; --n_model_shards 2 without
+  --distributed, and --distributed without a coordinator or torchrun's
+  environment, raise (tests/test_torch_mesh.py runs --distributed).
 """
 
 import json
@@ -314,8 +315,12 @@ def test_train_cli_resume_is_bitwise(uninterrupted, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--distributed"], ["--n_model_shards", "2"]], ids=["distributed", "shards"])
-def test_train_cli_refuses_parallel_runs(tmp_path, flag):
+def test_train_cli_refuses_parallel_runs(tmp_path, monkeypatch, flag):
+    """Model shards without --distributed (one process, one device), and
+    --distributed with neither a coordinator nor torchrun's environment."""
     from posetraj_torch.train.cli import main
 
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="--distributed|coordinator"):
         main(_train_args(tmp_path / "data", tmp_path / "out", *flag))

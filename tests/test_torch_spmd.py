@@ -147,12 +147,13 @@ def test_split_form_raises_under_grad():
 
 def test_pipeline_mesh_arguments():
     """serve_mesh and the batched mesh cannot be combined; the batched mesh
-    (parallel/mesh.py) is not in the port yet."""
+    (parallel/mesh.py) runs on its own device."""
+    from posetraj_torch.parallel.mesh import make_mesh
     from posetraj_torch.pipeline import SVDControlNetPipeline
 
     mesh = serve.make_serve_mesh(1, 1, device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         SVDControlNetPipeline({}, ModelBundle.tiny(), mesh=object(), serve_mesh=mesh)
-    with pytest.raises(NotImplementedError, match="mesh.py"):
-        SVDControlNetPipeline({}, ModelBundle.tiny(), device="cpu", mesh=object())
+    batched = make_mesh(device="cpu")
+    assert SVDControlNetPipeline({"controlnet": {}}, ModelBundle.tiny(), mesh=batched).device == torch.device("cpu")
     assert SVDControlNetPipeline({}, ModelBundle.tiny(), serve_mesh=mesh).device == torch.device("cpu")

@@ -210,8 +210,16 @@ def test_trainer_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(None, TrainConfig(), {}, {})
-    with pytest.raises(NotImplementedError, match="parallel"):
-        Trainer(None, TrainConfig(), {}, {}, mesh=object(), device="cpu")
+    from posetraj_torch.parallel.mesh import make_mesh
+    from posetraj_torch.pipeline import ModelBundle, init_params
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    bundle = ModelBundle.tiny()
+    params = init_params(bundle, seed=0, device="cpu")
+    frozen = {k: params[k] for k in ("unet", "vae", "clip")}
+    trainer = Trainer(bundle, TrainConfig(), frozen, params["controlnet"], mesh=make_mesh(device="cpu"))
+    assert trainer.device == torch.device("cpu")
 
 
 def test_added_time_ids_train_order():
