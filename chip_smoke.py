@@ -4,7 +4,7 @@ in PERF.md): the quickest proof that the port builds and runs on the card,
 for inference and for training.
 
     python3 chip_smoke.py            # every phase, as the checks run it
-    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6, 8, 10(c) and 11
+    python3 chip_smoke.py --steps 4  # fewer Euler steps in phases 4, 6, 8, 10(c), 11, 12 and 13(c)
 
 Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
   1. the card (nvidia-smi name, power limit) and the build of the six CUDA
@@ -178,6 +178,26 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      NCCL at full depth, the same checks, and a batch of 4 served on each
      against one card's, s/optimizer-step and s/request beside one card's
      (else "phase 12(d) not run: 1 device", not counted as passed);
+ 13. the tools (posetraj_torch/tools, utils/profiling.py): (a) the kernel
+     sweep: every kernel instance generate() dispatches under the default
+     KernelConfig at 14x576x1024 and 14x320x576 and under UNFUSED at
+     14x320x576, recorded from one eager generate() each on phase 3's
+     parameters and replayed alone against its plain version at phase 2's
+     tolerance (no deadline, no skip-cache: a shed or cached instance
+     fails), the distinct instances of each kernel printed (every line in
+     build/kernel_sweep.log); (b) bench_train_step() at full width,
+     14x320x576, its JSON line; (c) two flagship requests (the first
+     captures the denoise loop's graph, the second replays it) under
+     StageTimer, the pipeline's CLIP, VAE encode, hint, denoise and decode
+     wrapped, the stages within 2% of each request's wall time; trace() of
+     one replay of that graph (a Chrome trace under build/, removed); the
+     frozen encodes of encode_outside_step at the training shape under the
+     timer; (d) the parity gate: a diffusers-layout checkpoint of phase 3's
+     parameters under build/ (the recorded config.json files, the weights
+     through the converter's direct export), verify_against_expected
+     empty, parity_gate.main --skip-reference at its defaults exits 0, its
+     latents bit for bit generate()'s on the in-memory parameters (or
+     within the spread of two generate() calls); the directory removed;
   7. (printed last) a `kernels` summary, the JSON line of kernel numbers,
      and the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Weights are random, from a
@@ -293,15 +313,11 @@ def compare(got, want, tol: float, base=None, rms_tol=None):
     """Kernel output `got` against the plain output `want`: the max abs error
     must be within `tol` times the reference's max, and the error's RMS within
     `rms_tol` of the reference's RMS. With `base` (a sub-layer's residual
-    term) the reference is the branch want - base, not the whole output, so a
-    residual larger than the branch cannot hide a wrong branch."""
-    want = want.float()
-    ref = want - base.float() if base is not None else want
-    diff = got.float() - want
-    err, scale = float(diff.abs().max()), float(ref.abs().max())
-    rel_rms = float(diff.norm() / ref.norm())
-    ok = err <= tol * scale and (rms_tol is None or rel_rms <= rms_tol)
-    return err, scale, rel_rms, ok
+    term) the reference is the branch want - base. The one copy is
+    posetraj_torch/tools/kernel_sweep.py's, which phase 13's sweep uses."""
+    from posetraj_torch.tools.kernel_sweep import compare as sweep_compare
+
+    return sweep_compare(got, want, tol, base, rms_tol)
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +326,11 @@ def compare(got, want, tol: float, base=None, rms_tol=None):
 
 
 def check_kernels(torch, ops):
+    # Each kernel's tolerance is kernel_sweep's, which phase 13 holds every
+    # dispatched instance to.
+    from posetraj_torch.tools.kernel_sweep import FLOAT32_LAYERNORM_TOLERANCE
+    from posetraj_torch.tools.kernel_sweep import TOLERANCES as TOL
+
     groupnorm, mlp, qkvt, temporal, flash, layernorm, gemm = ops
     F = torch.nn.functional
     dev, bf = "cuda", torch.bfloat16
@@ -347,7 +368,7 @@ def check_kernels(torch, ops):
     # of the schedule divides evenly), the float32 VAE encode, and a
     # full-resolution VAE decode chunk (14, 576, 1024, 128) of more than
     # 2^28 elements (one team, the second read from HBM).
-    tol = 2e-2
+    tol = TOL["groupnorm.group_norm"][0]
     w, b = ln_params(320)
     x, add = rnd(28, 72, 128, 320), rnd(28, 320)
     run_k = lambda: groupnorm.group_norm_kernel(x, w, b, 32, 1e-5, True, add)
@@ -386,7 +407,7 @@ def check_kernels(torch, ops):
     # no LayerNorm, LayerNorm without residual, LayerNorm + residual +
     # addend (G, 1, K) and (G, S_a, K). The check is on the MLP branch,
     # out - (x + add).
-    tol, rms_tol = 3e-2, 1e-2
+    tol, rms_tol = TOL["mlp.geglu_mlp"]
     mlp_cases = [(f"level {lv}", m, k, True, True, a) for lv, (m, k, a) in
                  enumerate(((28 * 9216, 320, (28, 1, 320)), (28 * 2304, 640, (2, 2304, 640)),
                             (28 * 576, 1280, (28, 1, 1280))))]
@@ -459,7 +480,7 @@ def check_kernels(torch, ops):
     # keys carry each query's weight and the attention pattern, not the mean
     # of V, makes the branch; a key mask that let the padded keys in would
     # move it by 2-4% at S = 720 and 180, above the RMS tolerance.
-    tol, rms_tol = 3e-2, 1e-2
+    tol, rms_tol = TOL["qkvt.attn_sublayer"]
     for level, (bsz, s, c) in enumerate(((28, 9216, 320), (28, 2304, 640), (28, 576, 1280), (28, 2880, 320),
                                          (28, 720, 640), (28, 180, 1280))):
         sigma = max(1.0, np.log(s / 64)) ** 0.5
@@ -496,9 +517,9 @@ def check_kernels(torch, ops):
         qc, kc, vc = (t.permute(0, 2, 1, 3) for t in scratch)
         run_k = lambda: flash._launch_fwd(qc, kc, vc, 0.125, False, "flash_tq")[0]
         if s == 2880:
-            err, sc, rr, ok = compare(run_k(), flash.flash_attention_tq_plain(qc, kc, vc, 0.125), 3e-2,
-                                      rms_tol=1e-2)
-            report("qkvt", f"attention core (B,N,S,d)=({bsz},{heads},{s},64)", err, sc, rr, ok, 3e-2, 1e-2)
+            t7, r7 = TOL["flash.flash_attention_tq"]
+            err, sc, rr, ok = compare(run_k(), flash.flash_attention_tq_plain(qc, kc, vc, 0.125), t7, rms_tol=r7)
+            report("qkvt", f"attention core (B,N,S,d)=({bsz},{heads},{s},64)", err, sc, rr, ok, t7, r7)
         ms = cuda_ms(run_k, reps=5, inner=2)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(scratch[0], scratch[1], scratch[2]), reps=5, inner=2)
         bnd, _ = bound_ms(2 * 4 * bsz * heads * s * 64, 4.0 * bsz * heads * s * s * 64, BF16_FLOPS)
@@ -509,7 +530,7 @@ def check_kernels(torch, ops):
 
     # D: temporal sub-layer, x (2, 14, S, C) at the three levels; logits of
     # standard deviation 1 over the 14 frames. The check is on out - x.
-    tol, rms_tol = 3e-2, 1e-2
+    tol, rms_tol = TOL["temporal.temporal_attn_sublayer"]
     for level, (s, c) in enumerate(((9216, 320), (2304, 640), (576, 1280))):
         heads, f = c // 64, 14
         a = sublayer_args((2, f, s, c), 1.0)
@@ -574,7 +595,7 @@ def check_kernels(torch, ops):
     # The backward is fed the plain forward's o and lse, so each half is
     # held on its own. A kernel whose lse or p dropped log2(e) would be off
     # by a factor in every p, far outside the RMS limit.
-    tol, rms_tol, lse_tol = 3e-2, 1e-2, 2e-3
+    (tol, rms_tol), lse_tol = TOL["flash.flash_attention"], 2e-3
     for case, (bn, sq, skv, d) in enumerate(((70, 2880, 2880, 64), (140, 720, 720, 64), (5, 2880, 2880, 64),
                                              (28, 200, 200, 64), (14, 720, 1440, 64), (14, 720, 720, 128))):
         sigma = max(1.0, np.log(skv / 64)) ** 0.5
@@ -633,7 +654,7 @@ def check_kernels(torch, ops):
     # projection as self_attention_qkv splits it; then a ragged rectangular
     # case (Sq 200, Skv 400). o within 3e-2 of the reference's max and 1e-2
     # in rel RMS, as kernel 5's; logits of sd sqrt(ln(Skv/64)).
-    tol, rms_tol = 3e-2, 1e-2
+    tol, rms_tol = TOL["flash.flash_attention_tq"]
     for case, (bsz, sq, skv, heads) in enumerate(((28, 2880, 2880, 5), (28, 720, 720, 10), (4, 200, 400, 5))):
         c, d = heads * 64, 64
         sigma = max(1.0, np.log(skv / 64)) ** 0.5
@@ -670,7 +691,7 @@ def check_kernels(torch, ops):
     # the gradient of qkv through FlashAttentionQKV (kernel 5's backward on
     # the kernel's own o and lse) against the plain backward of the plain
     # forward. Tolerances as kernel 5's.
-    tol, rms_tol, lse_tol = 3e-2, 1e-2, 2e-3
+    (tol, rms_tol), lse_tol = TOL["flash.flash_attention_qkv"], 2e-3
     for case, (bsz, s, heads) in enumerate(((28, 2880, 5), (3, 600, 2))):
         d = 128
         c = heads * d
@@ -731,7 +752,7 @@ def check_kernels(torch, ops):
     ln_lines = []
     for case, (m, c, dtype) in enumerate(((28 * 2880, 320, bf), (28 * 720, 640, bf), (28 * 180, 1280, bf),
                                           (2 * 14 * 9216, 320, bf), (28 * 720, 640, torch.float32))):
-        tol, rms_tol = (1e-2, 2e-3) if dtype == bf else (1e-5, 1e-6)
+        tol, rms_tol = TOL["layernorm.layer_norm"] if dtype == bf else FLOAT32_LAYERNORM_TOLERANCE
         x_bytes = m * c * torch.finfo(dtype).bits // 8
         xs = [rnd(m, c, dtype=dtype) + 0.5 for _ in range(-(-L2_ROTATE // x_bytes))]
         w, b = ln_params(c)
@@ -1410,7 +1431,9 @@ def variants_check(torch, ops, native, params, steps, card, base_launches, gn_ro
     # (a) A at (2, F*h*w, 320): the temp variant's per-video GroupNorm, no
     # addend, no SiLU; 82.6 MB a sample, more than the card's shared memory,
     # so the sample streams twice. Tolerance as A's in phase 2.
-    tol = 2e-2
+    from posetraj_torch.tools.kernel_sweep import TOLERANCES
+
+    tol = TOLERANCES["groupnorm.group_norm"][0]
     x = (torch.randn(2, f * (hh // 8) * (ww // 8), 320, generator=g, device=dev) + 0.5).to(bf)
     w = torch.rand(320, generator=g, device=dev) + 0.5
     b = torch.randn(320, generator=g, device=dev) * 0.1
@@ -2663,7 +2686,9 @@ def split_groupnorm_check(torch, groupnorm, card):
     bf = torch.bfloat16
     g = torch.Generator(device="cuda")
     g.manual_seed(1111)
-    tol = 2e-2  # A's (phase 2)
+    from posetraj_torch.tools.kernel_sweep import TOLERANCES
+
+    tol = TOLERANCES["groupnorm.group_norm"][0]  # A's (phase 2)
 
     def inputs(shape, add_shape, apart=False):
         c = shape[-1]
@@ -2761,7 +2786,9 @@ def gathered_flash_check(torch, flash, card):
     F = torch.nn.functional
     g = torch.Generator(device="cuda")
     g.manual_seed(2222)
-    tol, rms_tol = 3e-2, 1e-2
+    from posetraj_torch.tools.kernel_sweep import TOLERANCES
+
+    tol, rms_tol = TOLERANCES["flash.flash_attention_tq"]
     ok_all = True
     for label, bsz, sq, skv, heads in GATHERED_FLASH:
         c, d = heads * 64, 64
@@ -3367,10 +3394,293 @@ def mesh_phase(torch, native, bundle, params, args, ge, training_kernels, infere
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the tools on the card
+# ---------------------------------------------------------------------------
+
+def sweep_check(torch, params, card):
+    """Phase 13(a): tools/kernel_sweep on the card. Every kernel instance
+    generate() dispatches under the default KernelConfig at 14x576x1024 and
+    14x320x576 and under UNFUSED at 14x320x576 (kernels 7 and 8), recorded
+    from one eager generate() a configuration on phase 3's parameters, each
+    replayed alone against its plain version at phase 2's tolerance. No
+    deadline and no skip-cache: an instance SHED or CACHED fails the phase.
+    Every instance's line goes to build/kernel_sweep.log."""
+    from posetraj_torch.configs import KernelConfig
+    from posetraj_torch.tools import kernel_sweep as ks
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    records = ks.record_instances(((576, 1024), (320, 576)), KernelConfig(), params=params, device=dev)
+    n_default = len(records)
+    unfused = ks.record_instances(((320, 576),), KernelConfig(**UNFUSED), params=params, device=dev)
+    n_unfused = len(unfused)
+    records.update(unfused)
+    rec_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = ks.replay_records(records, dev, verbose=False)
+    replay_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "kernel_sweep.log"), "w") as f:
+        f.writelines(f"{o.status:6s} {k}  {o.detail}\n" for k, o in res.instances)
+    by = {}
+    for k, o in res.instances:
+        row = by.setdefault(k.split("(", 1)[0], {"n": 0, "bad": 0, "worst": 0.0, "rms": 0.0})
+        row["n"] += 1
+        row["bad"] += o.status != "OK"
+        if not o.note:
+            row["worst"] = max(row["worst"], o.err / (o.tol * o.scale) if o.scale else float("inf"))
+            row["rms"] = max(row["rms"], o.rel_rms)
+    for name, row in sorted(by.items()):
+        say(f"  (a) {name:33s} {row['n']:4d} distinct instances, {row['n'] - row['bad']} OK; worst max_abs_err "
+            f"{row['worst']:.3f} of its tolerance, worst rel_rms {row['rms']:.3g}")
+    bad = [(k, o) for k, o in res.instances if o.status != "OK"]
+    for k, o in bad[:20]:
+        say(f"  (a) {o.status} {k}  {o.detail}")
+    say(f"  (a) kernel sweep: {len(records)} distinct instances ({n_default} default at 14x576x1024 and 14x320x576, "
+        f"{n_unfused} un-fused at 14x320x576, {n_default + n_unfused - len(records)} shared), recorded in "
+        f"{rec_s:.1f} s, replayed in {replay_s:.1f} s on {card}: {len(records) - len(bad)} OK, {len(bad)} not "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad:
+        fail("the kernel sweep: an instance failed against its plain version, or was shed or cached")
+    return {name: row["n"] for name, row in by.items()}
+
+
+def bench_check(torch, card):
+    """Phase 13(b): tools/bench_train.bench_train_step() at full width,
+    14x320x576, its defaults; prints its JSON line."""
+    from posetraj_torch.tools.bench_train import bench_train_step
+
+    t0 = time.perf_counter()
+    out = bench_train_step(verbose=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = np.isfinite(out["train_loss"]) and out["train_step_sec"] > 0 and out["train_temp_gb"] > 0
+    say(f"  (b) bench_train_step() on {card} in {time.perf_counter() - t0:.1f} s: {json.dumps(out)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the training bench's loss is not finite or it measured nothing")
+    return out
+
+
+def stage_check(torch, native, bundle, params, card, train_step_s, steps):
+    """Phase 13(c): requests at 14x576x1024 (`steps` steps, CFG) through
+    SVDControlNetPipeline under utils.StageTimer: the pipeline's own calls
+    wrapped (CLIP encode, VAE encode, hint, the denoise loop, decode), the
+    first request capturing the loop's graph, the second replaying it; for
+    each request the stages must sum to within 2% of its wall time (the
+    host time of its generate() call is printed beside). Then trace()
+    of one replay of that graph (a non-empty Chrome trace under build/,
+    removed), and the frozen encodes of encode_outside_step at the training
+    shape (14x320x576, batch 1) under the timer, beside the bench's
+    s/micro-step."""
+    import shutil
+
+    from posetraj_torch.pipeline import SVDControlNetPipeline
+    from posetraj_torch.pipeline import svd_controlnet as sc
+    from posetraj_torch.train import trainer as trainer_m
+    from posetraj_torch.utils import StageTimer, trace
+
+    pipe = SVDControlNetPipeline(params, bundle, device="cuda")
+    rng = np.random.RandomState(1300)
+    image = rng.rand(1, 576, 1024, 3).astype(np.float32)
+    control = rng.rand(1, 14, 576, 1024, 3).astype(np.float32)
+    stages = (("CLIP", sc, "encode_image_clip"), ("VAE encode", sc, "encode_image_vae"), ("hint", sc, "_hint"),
+              ("denoise", sc.DenoiseGraph, "run"), ("decode", sc, "decode_latents"))
+    ok_all = True
+    for request in ("first", "second"):
+        timer = StageTimer()
+        inner = []  # host seconds of the generate() call the request makes
+
+        def timed(name, fn):
+            def wrapper(*a, **k):
+                with timer.stage(name):
+                    return fn(*a, **k)
+            return wrapper
+
+        def timed_generate(*a, _generate=sc.generate, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = _generate(*a, **k)
+            torch.cuda.synchronize()
+            inner.append(time.perf_counter() - t0)
+            return frames
+
+        patches = [mock.patch.object(obj, attr, timed(name, getattr(obj, attr))) for name, obj, attr in stages]
+        patches.append(mock.patch.object(sc, "generate", timed_generate))
+        for p in patches:
+            p.start()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe(image, control, height=576, width=1024, num_frames=14, num_inference_steps=steps, seed=0)
+            wall = time.perf_counter() - t0
+        finally:
+            for p in patches:
+                p.stop()
+        st = timer.as_dict()
+        total = sum(st.values())
+        ok = (np.isfinite(out).all() and set(st) == {n for n, _, _ in stages}
+              and all(timer.counts[n] == 1 for n in st) and abs(total - wall) <= 0.02 * wall)
+        ok_all &= ok
+        split = ", ".join(f"{n} {st[n] * 1e3:.1f} ms" for n, _, _ in stages)
+        say(f"  (c) {request} request ({'replays the graph' if request == 'second' else 'captures the graph'}) "
+            f"14x576x1024 {steps} steps under StageTimer on {card}: {split}; the stages sum to {total:.4f} s, "
+            f"{(total - wall) / wall:+.2%} of the request's {wall:.4f} s wall (held to 2%); its generate() call "
+            f"{inner[0]:.4f} s, {wall - inner[0]:.4f} s of the request outside it; capture "
+            f"{pipe.graph.capture_s:.3f} s {'ok' if ok else 'FAIL'}")
+    tdir = os.path.join(HERE, "build", "trace_phase13")
+    shutil.rmtree(tdir, ignore_errors=True)
+    graph = pipe.graph
+    with torch.inference_mode():  # a replay reads sigmas[step], sigmas[step + 1]: from step 0 again
+        graph.buffers["step"].zero_()
+    with trace(tdir) as prof:
+        graph._graph.replay()
+    size = os.path.getsize(prof.trace_path)
+    with open(prof.trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    shutil.rmtree(tdir)
+    trace_ok = size > 0 and bool(events)
+    ok_all &= trace_ok
+    say(f"  (c) trace() of one graphed denoise step: {os.path.basename(prof.trace_path)} {size / 1e6:.2f} MB, "
+        f"{len(events)} events, {kernels} device kernels; removed {'ok' if trace_ok else 'FAIL'}")
+    del pipe, graph, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The frozen encodes of encode_outside_step (train/trainer.py
+    # encode_conditioning) at the training shape, by the same timer.
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1301)
+    pixels = torch.rand(1, 14, 320, 576, 3, generator=g, device="cuda") * 2 - 1
+    vae_eps = torch.randn(14, 40, 72, 4, generator=g, device="cuda")
+    enc = {"vae": {"encoder": params["vae"]["encoder"]}, "clip": params["clip"]}
+    timer = StageTimer()
+    with torch.no_grad():
+        for _ in range(3):
+            with timer.stage("VAE encode (float32, 14 frames)"):
+                trainer_m._vae_encode_frames(enc, bundle, pixels, vae_eps)
+            with timer.stage("CLIP (frame 0)"):
+                trainer_m.encode_image_clip_train(enc, bundle, pixels[:, 0], torch.bfloat16)
+    st = timer.as_dict()
+    split = ", ".join(f"{n} {t / timer.counts[n] * 1e3:.1f} ms" for n, t in st.items())
+    say(f"  (c) encode_outside_step's encodes at 14x320x576, batch 1, mean of 3 under StageTimer on {card}: {split}; "
+        f"the bench's graphed micro-step {train_step_s * 1e3:.1f} ms")
+    if not ok_all:
+        fail("a request's stages do not sum to its wall time within 2%, or the trace is empty")
+
+
+def write_gate_checkpoint(torch, params, root, hint_channels):
+    """A diffusers-layout checkpoint of `params` under `root`: the recorded
+    config.json files (tools/hub_configs.EXPECTED), a ControlNet config
+    (the UNet's keys and the hint encoder's channels), and each model's
+    weights through the converter's direct export, as .safetensors where
+    safetensors imports, else torch .bin. Returns (export s, write s,
+    bytes on disk)."""
+    from posetraj_torch.tools import hub_configs as hc
+    from posetraj_torch.tools.convert_weights import params_to_diffusers
+
+    names = {"feature_extractor": "preprocessor_config.json", "scheduler": "scheduler_config.json"}
+    for sub, cfg in hc.EXPECTED.items():
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, sub, names.get(sub, "config.json")), "w") as f:
+            json.dump(cfg, f)
+    cn_cfg = {k: v for k, v in hc.EXPECTED["unet"].items() if k != "up_block_types"}
+    cn_cfg.update(conditioning_channels=3, conditioning_embedding_out_channels=list(hint_channels))
+    os.makedirs(os.path.join(root, "controlnet"), exist_ok=True)
+    with open(os.path.join(root, "controlnet", "config.json"), "w") as f:
+        json.dump(cn_cfg, f)
+    try:
+        from safetensors.numpy import save_file
+    except ImportError:
+        save_file = None
+    export_s = write_s = 0.0
+    for model, sub in (("unet", "unet"), ("controlnet", "controlnet"), ("vae", "vae"), ("clip", "image_encoder")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd = params_to_diffusers(params[model], model)
+        export_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if save_file is not None:
+            save_file(sd, os.path.join(root, sub, "diffusion_pytorch_model.safetensors"))
+        else:
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                       os.path.join(root, sub, "diffusion_pytorch_model.bin"))
+        write_s += time.perf_counter() - t0
+        del sd
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(root) for n in ns)
+    return export_s, write_s, nbytes
+
+
+def gate_check(torch, bundle, params, card):
+    """Phase 13(d): tools/parity_gate on the card. A diffusers-layout
+    checkpoint of phase 3's seeded full-width parameters under build/
+    (write_gate_checkpoint); verify_against_expected must find nothing;
+    parity_gate.main([dir, "--skip-reference"]) at its defaults (256x384,
+    14 frames, 4 steps) must exit 0, and its latents must equal generate()
+    on the in-memory parameters with the gate's inputs bit for bit, or lie
+    within the spread of two such calls. The directory is removed."""
+    import shutil
+
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.diffusion.euler_karras import make_schedule
+    from posetraj_torch.pipeline.svd_controlnet import added_time_ids_inference, generate
+    from posetraj_torch.tools import hub_configs as hc
+    from posetraj_torch.tools import parity_gate
+
+    root = os.path.join(HERE, "build", "gate_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        export_s, write_s, nbytes = write_gate_checkpoint(torch, params, root,
+                                                          bundle.controlnet.hint.block_out_channels)
+        issues = hc.verify_against_expected(root)
+        npz = os.path.join(root, "latents.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = parity_gate.main([root, "--skip-reference", "--out", npz])
+        gate_s = time.perf_counter() - t0
+        ours = np.load(npz)["ours"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    h, w, f, steps = 256, 384, 14, 4
+    pcfg = PipelineConfig(height=h, width=w, num_frames=f, num_inference_steps=steps, decode_chunk_size=f)
+    image, control, noises, _ = parity_gate.make_gate_inputs(h, w, f, 0)
+    sched = make_schedule(bundle.scheduler, steps)
+    direct = [generate(params, bundle, pcfg, image, control, noises, added_time_ids_inference(pcfg), sched.sigmas,
+                       sched.timesteps, f, output_latent=True, device="cuda").float().cpu().numpy()
+              for _ in range(2)]
+    spread = float(np.abs(direct[0] - direct[1]).max())
+    diff = float(np.abs(ours - direct[0]).max())
+    ok = rc == 0 and not issues and ours.shape == direct[0].shape and np.isfinite(ours).all() and diff <= spread
+    say(f"  (d) parity gate on a diffusers-layout checkpoint of phase 3's full-width parameters: {nbytes / 1e9:.2f} GB "
+        f"on disk (direct export {export_s:.2f} s, written in {write_s:.2f} s, removed after); "
+        f"verify_against_expected {issues or '[]'}; parity_gate.main --skip-reference (256x384, 14 frames, 4 steps) "
+        f"exit {rc} in {gate_s:.1f} s; its latents {ours.shape} against generate() on the in-memory parameters: "
+        f"max |diff| {diff:.3g} (two generate() calls differ by {spread:.3g}) on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the parity gate: the checkpoint's configs diverge, the gate failed, or its latents differ from "
+             "generate() on the parameters it was written from")
+
+
+def tools_phase(torch, native, bundle, params, card, steps):
+    """Phase 13; returns the sweep's distinct instances by kernel."""
+    t0 = time.perf_counter()
+    say(f"phase 13: the tools on {card}")
+    counts = sweep_check(torch, params, card)
+    bench = bench_check(torch, card)
+    stage_check(torch, native, bundle, params, card, bench["train_step_sec"], steps)
+    gate_check(torch, bundle, params, card)
+    say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=25,
-                    help="Euler steps per request in phases 4, 6, 8, 10(c), 11 and 12")
+                    help="Euler steps per request in phases 4, 6, 8, 10(c), 11, 12 and 13(c)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -3592,6 +3902,10 @@ def main() -> None:
 
     # Phase 12: the ("data", "model") mesh.
     mesh_phase(torch, _native, bundle, params, args, ge, training_kernels, inference_kernels, card)
+
+    # Phase 13: the tools (the kernel sweep, the training bench, stage
+    # timing and tracing, the parity gate).
+    tools_phase(torch, _native, bundle, params, card, args.steps)
 
     # Phase 7: A-D count phase 4's run, kernel 5 phase 5(c)'s, 6-8 phase 6's
     # (A's split form phase 11's sharded requests).

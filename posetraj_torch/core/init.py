@@ -114,6 +114,11 @@ class Init:
 
 
 def make_init(seed: int, device: torch.device, dtype: torch.dtype) -> Init:
+    """An Init drawing from `seed` on `device`. On the `meta` device the
+    leaves hold shapes, dtypes and layouts only (no generator, no memory):
+    the templates of tools/fill.py and of the weight converter."""
+    if torch.device(device).type == "meta":
+        return Init(None, torch.device(device), dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return Init(gen, device, dtype)

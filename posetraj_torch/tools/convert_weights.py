@@ -17,22 +17,25 @@ Name translation is rule-based from our flattened names; `convert_to_jax`
 verifies every target leaf is covered and every shape matches, so a wrong
 architecture fails loudly rather than silently mis-loading.
 
-The port's own parameters (core/init.py's layouts, the fused `wqkv`) go
-through that tree form: `params_from_diffusers` is convert_to_jax onto
-params_to_jax(like), then params_from_jax; `params_to_diffusers` is
-params_to_jax, then convert_to_torch (core/bridge.py).
+The port's own parameters (core/init.py's layouts, the fused `wqkv`) are
+already in torch layout. `jax_named_leaves` walks them in the order and
+under the flat names of their JAX-package tree (core/bridge.params_to_jax),
+without moving a value: `params_to_diffusers` maps each leaf straight to its
+diffusers name (one device-side cast and one copy to the host a leaf), and
+`params_from_diffusers` converts onto a template of that tree's shapes
+(`jax_template`), so `like` may live on the `meta` device.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
 import torch
 
-from posetraj_torch.core.bridge import params_from_jax, params_to_jax
+from posetraj_torch.core.bridge import params_from_jax
 from posetraj_torch.core.params import cast_like, flatten_dict, leaves, unflatten_dict
 
 Array = np.ndarray
@@ -219,20 +222,77 @@ def load_diffusers_model_dir(path: str) -> Dict[str, Array]:
     return sd
 
 
+def _jax_shape(name: str, t: torch.Tensor) -> tuple:
+    """The JAX-package shape of a port leaf named `name` (a JAX flat name)."""
+    shape = tuple(t.shape)
+    if name.endswith(".kernel"):
+        if len(shape) == 2:
+            return shape[::-1]
+        if len(shape) == 4:  # OIHW -> HWIO
+            return (shape[2], shape[3], shape[1], shape[0])
+        if len(shape) == 5:  # OIDHW -> DHWIO
+            return (*shape[2:], shape[1], shape[0])
+    return shape
+
+
+def jax_named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(JAX flat name, port tensor in torch layout) of every leaf of the
+    port's parameters, in the order of flatten_dict(params_to_jax(tree)):
+    `wqkv` as its to_q / to_k / to_v rows, a layer's `weight` as `kernel`, a
+    norm's (1-D) `weight` as `scale`."""
+    join = lambda k: f"{prefix}.{k}" if prefix else str(k)
+    if isinstance(tree, dict):
+        if "wqkv" in tree:
+            for name, w in zip(("to_q", "to_k", "to_v"), tree["wqkv"].chunk(3, dim=0)):
+                yield join(f"{name}.kernel"), w
+            yield from jax_named_leaves(tree["to_out"], join("to_out"))
+        elif "weight" in tree:
+            yield join("scale" if tree["weight"].ndim == 1 else "kernel"), tree["weight"]
+            if "bias" in tree:
+                yield join("bias"), tree["bias"]
+        else:
+            for k, v in tree.items():
+                yield from jax_named_leaves(v, join(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from jax_named_leaves(v, join(i))
+    else:
+        yield prefix, tree
+
+
+def jax_template(like) -> Dict:
+    """The JAX-package tree of `like` (params_to_jax's structure and
+    shapes) with zero-stride float32 zeros for leaves: a template for
+    convert_to_jax that reads no value of `like`."""
+    return unflatten_dict({name: np.broadcast_to(np.float32(0), _jax_shape(name, t))
+                           for name, t in jax_named_leaves(like)})
+
+
+def _host_float32(t: torch.Tensor) -> Array:
+    """A float32, C-contiguous host copy of `t` (cast and laid out on t's
+    device, then copied once)."""
+    h = t.detach().to(dtype=torch.float32, memory_format=torch.contiguous_format, copy=True)
+    return (h.cpu() if h.device.type != "cpu" else h).numpy()
+
+
 def params_from_diffusers(state_dict: Dict[str, Array], like, model: str, device=None, dtype=None):
     """A diffusers-layout state_dict -> the port's parameters shaped like
-    `like` (a tree of the same model, e.g. from core/init.py), every name
-    and shape checked (convert_to_jax, strict). On `device` (default:
-    like's) in `dtype`; dtype None keeps each leaf's dtype in `like` (the
-    VAE keeps its float32 encoder)."""
+    `like` (a tree of the same model, e.g. from core/init.py, on any device,
+    `meta` included), every name and shape checked (convert_to_jax,
+    strict). On `device` (default: like's; required for a `meta` like) in
+    `dtype`; dtype None keeps each leaf's dtype in `like` (the VAE keeps its
+    float32 encoder)."""
     first = next(leaves(like))
     device = first.device if device is None else device
-    tree = convert_to_jax(state_dict, params_to_jax(like), model)
+    tree = convert_to_jax(state_dict, jax_template(like), model)
     out = params_from_jax(tree, device=device, dtype=dtype or torch.float32)
     return out if dtype is not None else cast_like(out, like)
 
 
 def params_to_diffusers(params, model: str) -> Dict[str, Array]:
-    """The port's parameters -> a diffusers-layout state_dict of float32
-    numpy arrays (what export_diffusers writes)."""
-    return convert_to_torch(params_to_jax(params), model)
+    """The port's parameters -> a diffusers-layout state_dict of float32,
+    C-contiguous numpy arrays (what export_diffusers writes), leaf by leaf
+    from the torch layout the port keeps: bitwise
+    convert_to_torch(params_to_jax(params), model), without its two host
+    transposes a leaf."""
+    return {our_name_to_torch(name, model): _host_float32(t) for name, t in jax_named_leaves(params)}

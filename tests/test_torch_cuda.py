@@ -36,7 +36,10 @@ takes A's tolerance, its float64 sums within 1e-4 of the plain float32
 statistics; generate_sharded on a (1, 1) mesh launches what generate()
 launches with C and D off and lands within 2e-2 relative RMS of its
 latents. Trainer(mesh=) on a (1, 1) mesh through a one-rank NCCL group
-is bit for bit the unsharded Trainer.
+is bit for bit the unsharded Trainer. tools/kernel_sweep replays one
+recorded instance of each kernel (and kernels 5 and 6 on instances made by
+hand) at phase 2's tolerances; utils.StageTimer's CUDA-event stages sum to
+between 90% and 100% of the synchronised wall time of GPU-bound work.
 """
 
 import math
@@ -1116,3 +1119,62 @@ def test_cuda_checkpoint_resume(tmp_path):
     got = [float(resumed.step(b)["loss"]) for b in batches[3:]]
     assert got == want and resumed.state.step == 5
     assert _max_diff(_copy_state(run), _copy_state(resumed)) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_sweep_replays_one_recorded_key_per_kernel():
+    """tools/kernel_sweep on the card at a small shape: generate() at full
+    width, 256x256, 2 frames, recorded under the default KernelConfig (A-D)
+    and the un-fused one (A, B, kernels 7 and 8), then one recorded
+    instance of each kernel replayed against its plain version at phase 2's
+    tolerance; kernels 5 and 6, which generate() does not dispatch, on
+    instances made by hand."""
+    _need_cuda()
+    from posetraj_torch.configs import KernelConfig
+    from posetraj_torch.tools import kernel_sweep as ks
+
+    dev = torch.device("cuda")
+    rec = ks.record_instances(((256, 256),), KernelConfig(), frames=2, device=dev)
+    rec.update(ks.record_instances(((256, 256),), KernelConfig(qkvt_attn=False, temporal_attn=False,
+                                                                fused_ff_ln=False, fused_ln=True),
+                                   frames=2, device=dev))
+    one = {}
+    for key, inst in sorted(rec.items()):
+        one.setdefault(inst.name, inst)
+    assert {"qkvt.attn_sublayer", "temporal.temporal_attn_sublayer", "mlp.geglu_mlp", "groupnorm.group_norm",
+            "layernorm.layer_norm", "flash.flash_attention_tq"} <= set(one)
+    bf = torch.bfloat16
+    spec = lambda *shape: ks.TensorSpec(shape, torch.empty(shape, device="meta").stride(), 0, bf)
+    one["flash.flash_attention"] = ks.Instance("flash.flash_attention", (spec(2, 640, 2, 64), spec(2, 640, 2, 64),
+                                                                         spec(2, 640, 2, 64), 0.125), {})
+    one["flash.flash_attention_qkv"] = ks.Instance("flash.flash_attention_qkv", (spec(2, 640, 768), 2, 128**-0.5), {})
+    res = ks.replay_records({inst.key(): inst for inst in one.values()}, dev, verbose=False)
+    assert len(res.instances) == len(ks.TARGETS)
+    assert [o.status for _, o in res.instances] == ["OK"] * len(ks.TARGETS), res.instances
+
+
+@pytest.mark.cuda
+def test_cuda_stage_timer_against_synchronized_wall():
+    """utils.StageTimer on the card: CUDA events on the current stream, no
+    sync inside a stage; over GPU-bound stages their sum lies within the
+    synchronised wall time and above 90% of it."""
+    _need_cuda()
+    import time
+
+    from posetraj_torch.utils import StageTimer
+
+    x = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    x @ x
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name in ("a", "b", "a"):
+        with timer.stage(name):
+            for _ in range(10):
+                x @ x
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = timer.as_dict()
+    total = sum(st.values())
+    assert set(st) == {"a", "b"} and timer.counts["a"] == 2 and st["a"] > st["b"] > 0
+    assert 0.9 * wall <= total <= wall, (total, wall)

@@ -291,6 +291,9 @@ def test_port_imports_no_jax():
         "import posetraj_torch.ops.groupnorm, posetraj_torch.ops.mlp, posetraj_torch.ops.qkvt, posetraj_torch.ops.temporal\n"
         "import posetraj_torch.ops.flash, posetraj_torch.ops.layernorm, posetraj_torch.ops.attention\n"
         "import posetraj_torch.configs, posetraj_torch.train, posetraj_torch.parallel, posetraj_torch.parallel.serve\n"
+        "import posetraj_torch.utils, posetraj_torch.utils.profiling, posetraj_torch.tools.fill\n"
+        "import posetraj_torch.tools.bench_train, posetraj_torch.tools.hub_configs, posetraj_torch.tools.parity_gate\n"
+        "import posetraj_torch.tools.kernel_sweep, posetraj_torch.tools.convert_weights\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'posetraj_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
