@@ -67,7 +67,7 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      accumulator bitwise equal where two eager runs are (else within their
      spread), the same launches by the wrappers' counts and, in one
      micro-step, by the profiler's; s/micro-step and s/optimizer-step as
-     medians of 8 optimizer steps taken in turns (eager, graph, graph,
+     medians of 4 optimizer steps taken in turns (eager, graph, graph,
      eager), busy share, capture seconds, memory at rest and at an eager
      peak, the graph's pool, the bytes of a full-width checkpoint; the
      graphed step must not be slower; (f) bbox, cam, rot and temp under the
@@ -101,16 +101,16 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      (pipeline.svd_controlnet.denoise_eager), 4 steps from the same inputs,
      at 14x576x1024 default and 14x320x576 un-fused: bitwise equal where
      two eager runs are (else within their spread), the same launches,
-     s/denoise-step eager and graphed (the median of 8 calls each, taken
+     s/denoise-step eager and graphed (the median of 4 calls each, taken
      in turns), capture and instantiation seconds, device time and busy
      share under torch.profiler, where each port kernel's device launches
      in the graphed run must equal the eager run's and, for the kernels of
      one device launch a call, the launches the graph's replays added to
      the counts; the un-fused graphed step must
-     not be slower than the eager one; then generate() called directly,
-     twice with the eager loop (the loop before the graph) and twice with
-     the graph (the first call captures it), s/request at each
-     configuration, the outputs equal where two eager runs are;
+     not be slower than the eager one; then generate() called directly (8
+     Euler steps), twice with the eager loop (the loop before the graph)
+     and twice with the graph (the first call captures it), s/request at
+     each configuration, the outputs equal where two eager runs are;
  10. the data layer and the two drivers: (a) every port module imports
      with PIL, cv2, imageio, safetensors and tensorboard refused (the
      readers a card host may lack); rasterize_video on the card, hard and gaussian,
@@ -140,10 +140,17 @@ Phases, one line of output each (more for phases 2, 5, 6, 8 and 9):
      (28, 72, 128, 320) bf16 +temb +SiLU and of (2, 14, 72, 128, 320) with
      its per-frame addend, against the one-launch A and the plain version
      (A's tolerance), which a half normalised by its own statistics must
-     fail; then stats and apply timed at the (2, 4)-local (14, 72, 32,
-     320) and the full shape (device time, and a call by CUDA events)
-     beside one-launch A, the plain versions, torch.var_mean /
-     F.group_norm and the bounds; (b) kernel 7 at the shapes of the
+     fail; the sweep: every rank-local shape group_norm_silu hands the
+     split form at 14x576x1024 on the (1, 2), (2, 2) and (2, 4) meshes,
+     derived from kernel_sweep's record of one generate() (the calls of the
+     hint and the step, H sharded, W / sp, the CFG batch / cfg; the step's
+     split calls must be its 152 GroupNorms), each over its sp blocks drawn
+     apart, held the same way; then stats and apply timed at the (2,
+     4)-local (14, 72, 32, 320) and the full shape, device time with L2
+     flushed before each call (a 256 MB write) and warm, and a call by CUDA
+     events cold and warm, beside one-launch A, the plain versions,
+     torch.var_mean / F.group_norm and the bounds, a split GroupNorm two
+     device kernels; (b) kernel 7 at the shapes of the
      gathered K/V, q (14, 2304) / kv (14, 9216) and q (14, 576) / kv (14,
      2304), and square at (28, 9216), against its plain version, beside
      SDPA and the bound; (c) generate_sharded on a (1, 1) mesh through a
@@ -284,9 +291,9 @@ def rotating(inputs, fn):
     return lambda: fn(next(turn))
 
 
-def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
-    """Mean device milliseconds per call of the kernels whose name holds
-    `key`, over `calls` warm calls of fn under torch.profiler."""
+def _profiled(torch, fn, calls: int, flush=None):
+    """The device kernels of `calls` calls of fn under torch.profiler (after
+    one call outside it), `flush` run before each call where given."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -295,12 +302,46 @@ def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
         for _ in range(PROFILE_PREROLL):  # spin kernels take the records a window may miss (profile_step)
             torch.cuda._sleep(1000)
         for _ in range(calls):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.name]
+
+
+def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
+    """Mean device milliseconds per call of the kernels whose name holds
+    `key`, over `calls` warm calls of fn under torch.profiler."""
     total = sum((ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total)
-                for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.name
-                and "spin_kernel" not in ev.name)
+                for ev in _profiled(torch, fn, calls) if key in ev.name)
     return total / calls / 1e3
+
+
+def profiled_kernel_count(torch, fn, windows: int = 5) -> int:
+    """Device kernels a call of fn launches, by torch.profiler: the median
+    over one-call windows (a window can miss a record)."""
+    return int(statistics.median(len(_profiled(torch, fn, 1)) for _ in range(windows)))
+
+
+def cold_kernel_ms(torch, fn, key: str, kernels: int, flush, windows: int = 10) -> float:
+    """Median device milliseconds of one call of fn with `flush` run just
+    before it, by torch.profiler: one call a window, a window kept only if
+    it recorded fn's `kernels` device kernels whose name holds `key` (the
+    profiler can miss records in a process that has profiled before).
+    Fails if none did."""
+    times, seen = [], []
+    for _ in range(windows):
+        window = _profiled(torch, fn, 1, flush)
+        evs = [ev for ev in window if key in ev.name]
+        seen.append(len(window))
+        if len(evs) == kernels:
+            times.append(sum((ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total)
+                             for ev in evs) / 1e3)
+    if not times:
+        fail(f"torch.profiler recorded no L2-cold call's {kernels} '{key}' kernels in {windows} windows (device "
+             f"records a window: {seen}; the last window's: {sorted({ev.name[:60] for ev in window})})")
+    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -1614,7 +1655,10 @@ def variants_check(torch, ops, native, params, steps, card, base_launches, gn_ro
 # Phase 9: the denoise loop as one captured CUDA graph against the eager loop.
 GRAPH_STEPS = 4
 # Rounds of (eager, graph, graph, eager) calls that time s/denoise-step.
-GRAPH_TIME_ROUNDS = 4
+GRAPH_TIME_ROUNDS = 2
+# Euler steps of phase 9's direct generate() calls: the graph's reuse and
+# its bits against the eager loop show at any step count.
+DIRECT_STEPS = 8
 # Profile groups (_kernel_group) of the port's kernels that launch one device
 # kernel a counted call, and their counters (C's call launches one flash
 # forward, its core). B's calls launch two or three kernels and C's and D's
@@ -1784,7 +1828,7 @@ def direct_generate_check(torch, bundle, params, steps, height, width, cfg, card
 # Phase 5(e)-(g): the micro-step's captured graph against the eager step,
 # the other training configurations, resume.
 GRAPH_TRAIN_STEPS = 4   # micro-steps from one state in each run of 5(e): two updates
-TRAIN_TIME_ROUNDS = 4   # rounds of (eager, graph, graph, eager) optimizer steps timing 5(e)
+TRAIN_TIME_ROUNDS = 2   # rounds of (eager, graph, graph, eager) optimizer steps timing 5(e)
 # 5(f): each configuration's name, hint variant, KernelConfig switches and
 # TrainConfig options.
 TRAIN_CONFIGS = (
@@ -2644,6 +2688,14 @@ def driver_check(torch, native, steps, per_request, card):
 # Kernel A's split form at the flagship's level-0 resnet GroupNorm: (2, 4)
 # gives each rank (14, 72, 32, 320) of the (28, 72, 128, 320) activation.
 SPLIT_GN_SHAPES = (("(2,4)-local", (14, 72, 32, 320)), ("full", (28, 72, 128, 320)))
+# The (cfg, sp) meshes whose rank-local shapes 11(a) sweeps, and the
+# GroupNorms of one denoise step (ControlNet + UNet), each a split call
+# where every level is W-sharded, as at 14x576x1024 on these meshes.
+SPLIT_MESHES = ((1, 2), (2, 2), (2, 4))
+GN_PER_STEP = 152
+# Bytes written between timed calls that must find L2 cold: more than the
+# 50 MB L2 of an H100 holds.
+FLUSH_BYTES = 256 * 2**20
 # Kernel 7 where the sharded path runs it at 14x576x1024: rectangular on
 # K/V gathered over sp = 4 at levels 0 and 1 (rank-local B*F = 14 under
 # cfg = 2), square at level 0 on a (1, 1) mesh (C off under the context).
@@ -2667,7 +2719,119 @@ SHARDED_MIN_TOL = 1e-3
 SHARDED_RANKS_TIMEOUT_S = 600
 
 
-def split_groupnorm_check(torch, groupnorm, card):
+def sharded_gn_calls(torch, params):
+    """Every kernel-A call of one eager generate() at 14x576x1024 (default
+    KernelConfig, one Euler step, CFG), recorded by tools/kernel_sweep as
+    phase 13(a) records it, that runs inside the denoise loop: the hint
+    encoder's and the step's, the calls generate_sharded makes under the
+    spatial-sharding context (CLIP and the VAE run outside it). Returns
+    [(stage "hint" or "step", x shape, addend shape or None, dtype)]."""
+    from posetraj_torch.configs import KernelConfig
+    from posetraj_torch.ops import groupnorm
+    from posetraj_torch.pipeline import svd_controlnet as sc
+    from posetraj_torch.tools import kernel_sweep as ks
+
+    calls, stage = [], []
+    gn, loop, step = groupnorm.group_norm, sc.denoise_eager, sc._denoise_step
+
+    def counted(*args, **kwargs):
+        if stage:
+            add = args[6] if len(args) > 6 else kwargs.get("add")
+            calls.append((stage[-1], tuple(args[0].shape), None if add is None else tuple(add.shape), args[0].dtype))
+        return gn(*args, **kwargs)
+
+    def staged(name, fn):
+        def run(*args, **kwargs):
+            stage.append(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stage.pop()
+        return run
+
+    groupnorm.group_norm, sc.denoise_eager, sc._denoise_step = counted, staged("hint", loop), staged("step", step)
+    try:
+        ks.record_instances(((576, 1024),), KernelConfig(), params=params, device=torch.device("cuda"))
+    finally:
+        groupnorm.group_norm, sc.denoise_eager, sc._denoise_step = gn, loop, step
+    return calls
+
+
+def split_shapes(torch, calls, meshes=SPLIT_MESHES):
+    """The rank-local shapes group_norm_silu hands A's split form on each
+    (cfg, sp) mesh at 14x576x1024: every call whose H the mesh shards
+    (SpmdCtx.w_sharded_at, the replicated levels from
+    serve._check_divisible), W divided by sp, the CFG-doubled batch (x's
+    and the addend's first axis) by cfg. Returns ({(x shape, addend shape,
+    dtype): sp of the first mesh that gives it}, {mesh: the step's split
+    calls})."""
+    from posetraj_torch.configs import PipelineConfig
+    from posetraj_torch.parallel import serve, spmd
+    from posetraj_torch.pipeline import ModelBundle
+
+    pcfg = PipelineConfig(height=576, width=1024, num_frames=14, decode_chunk_size=2)
+    shapes, per_step = {}, {}
+    for n_cfg, n_sp in meshes:
+        rep_h, rep_s = serve._check_divisible(pcfg, ModelBundle(), 14, n_cfg, n_sp)
+        ctx = spmd.SpmdCtx(spmd.ServeMesh(n_cfg, n_sp, 0, torch.device("cuda")), rep_h, rep_s)
+        per_step[(n_cfg, n_sp)] = 0
+        for stage, xs, adds, dt in calls:
+            if len(xs) < 4 or not ctx.w_sharded_at(xs[-3]):
+                continue
+            per_step[(n_cfg, n_sp)] += stage == "step"
+            local = (xs[0] // n_cfg,) + xs[1:-2] + (xs[-2] // n_sp, xs[-1])
+            add = None if adds is None else (adds[0] // n_cfg,) + adds[1:]
+            shapes.setdefault((local, add, dt), n_sp)
+    return shapes, per_step
+
+
+def split_case(torch, groupnorm, shape, add_shape, sp, g, dtype=None):
+    """x of `sp` W blocks of `shape` (rank-local), drawn apart (block j
+    scaled 1 + j and shifted by j), weight, bias, addend, the blocks."""
+    bf = dtype or torch.bfloat16
+    c, w_axis = shape[-1], len(shape) - 2
+    full = shape[:-2] + (shape[-2] * sp, c)
+    x = torch.randn(*full, generator=g, device="cuda") + 0.5
+    for j, blk in enumerate(x.chunk(sp, dim=w_axis)):
+        blk.mul_(1.0 + j).add_(float(j))
+    x = x.to(bf)
+    w = torch.rand(c, generator=g, device="cuda") + 0.5
+    b = torch.randn(c, generator=g, device="cuda") * 0.1
+    add = torch.randn(*add_shape, generator=g, device="cuda").to(bf) if add_shape is not None else None
+    return x, w, b, add, [blk.contiguous() for blk in x.chunk(sp, dim=w_axis)]
+
+
+def split_run(torch, groupnorm, blocks, w, b, add, shards):
+    """Statistics of every block, summed (the all-reduce of the ranks),
+    then the apply of each, concatenated along W; and the sums."""
+    sums = sum(groupnorm.group_norm_stats_kernel(blk, 32, add) for blk in blocks)
+    y = [groupnorm.group_norm_apply_kernel(blk, w, b, sums, 32, 1e-5, True, add, shards=shards) for blk in blocks]
+    return torch.cat(y, dim=blocks[0].ndim - 2), sums
+
+
+def flush_l2(torch):
+    """A write of FLUSH_BYTES, more than the 50 MB L2 holds."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return lambda: buf.add_(1.0)
+
+
+def cold_event_ms(torch, fn, flush, calls: int = 15) -> float:
+    """Median milliseconds of one call by CUDA events, L2 flushed before
+    each outside the bracket."""
+    fn()
+    times = []
+    for _ in range(calls):
+        flush()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def split_groupnorm_check(torch, groupnorm, params, card):
     """Phase 11(a): kernel A's split form. Two W halves of (14, 72, 32, 320)
     (the (2, 4)-local shape) and of (28, 72, 128, 320) bf16 (+ the per-sample
     temb addend, SiLU), and of (2, 14, 72, 128, 320) with its per-frame
@@ -2676,12 +2840,18 @@ def split_groupnorm_check(torch, groupnorm, card):
     and the plain version at A's tolerance, the float64 sums against the
     plain float32 statistics. The halves are drawn apart, so that a half
     normalised by its own statistics (sums never reduced, or never read)
-    fails that tolerance: the check asserts it does. Then stats and apply
-    timed at the (2, 4)-local and the full shape beside one-launch A, the
-    plain versions, torch.var_mean / F.group_norm and the bounds: device
-    time from torch.profiler (the JSON rows, the (2, 4)-local shape), and a
-    call by CUDA events, which at the small shape is the wrapper's host
-    time. Returns the JSON rows."""
+    fails that tolerance: the check asserts it does. Then the sweep: every
+    rank-local shape group_norm_silu hands the split form at 14x576x1024 on
+    the SPLIT_MESHES (sharded_gn_calls, split_shapes), the statistics of
+    its sp blocks summed and each applied, held the same way; the step's
+    split calls on each mesh must be the 152 GroupNorms of a step. Then
+    stats and apply timed at the (2, 4)-local and the full shape beside
+    one-launch A, the plain versions, torch.var_mean / F.group_norm and the
+    bounds: device time from torch.profiler with L2 flushed before each
+    call (the time the bytes bound is read against; the JSON rows, the
+    (2, 4)-local shape) and warm, and a call by CUDA events cold and warm,
+    which at the small shape is the wrapper's host time. Returns the JSON
+    rows."""
     F = torch.nn.functional
     bf = torch.bfloat16
     g = torch.Generator(device="cuda")
@@ -2708,9 +2878,7 @@ def split_groupnorm_check(torch, groupnorm, card):
     for shape, add_shape in cases:
         x, w, b, add = inputs(shape, add_shape, apart=True)
         halves = [h.contiguous() for h in x.chunk(2, dim=x.ndim - 2)]
-        sums = sum(groupnorm.group_norm_stats_kernel(h, 32, add) for h in halves)
-        got = torch.cat([groupnorm.group_norm_apply_kernel(h, w, b, sums, 32, 1e-5, True, add, shards=2)
-                         for h in halves], dim=x.ndim - 2)
+        got, sums = split_run(torch, groupnorm, halves, w, b, add, 2)
         want_sums = groupnorm.group_norm_stats_plain(x, 32, add).double()
         sums_err = float((sums - want_sums).abs().max() / want_sums.abs().max())
         want = groupnorm.group_norm_plain(x, w, b, 32, 1e-5, True, add)
@@ -2731,6 +2899,39 @@ def split_groupnorm_check(torch, groupnorm, card):
             f"statistics max_abs_err={err_local:.4g} (must fail the tol); sums vs plain float32 rel err "
             f"{sums_err:.3g} (tol 1e-4) {'ok' if ok else 'FAIL'}")
         del x, halves, got, add, local, want
+
+    # The sweep at the sharded path's rank-local shapes.
+    t0 = time.perf_counter()
+    calls = sharded_gn_calls(torch, params)
+    shapes, per_step = split_shapes(torch, calls)
+    hint_calls = sum(stage == "hint" for stage, *_ in calls)
+    step_ok = all(n == GN_PER_STEP for n in per_step.values())
+    say(f"  (a) sweep: {len(calls)} kernel-A calls inside one denoise loop at 14x576x1024 ({hint_calls} in the hint, "
+        f"{len(calls) - hint_calls} in the step); split calls a step by mesh {per_step} (must be {GN_PER_STEP}) "
+        f"{'ok' if step_ok else 'FAIL'}; {len(shapes)} distinct rank-local shapes over the meshes {SPLIT_MESHES}")
+    ok_all &= step_ok
+    worst = {"err": 0.0, "sums": 0.0, "bad": []}
+    for (shape, add_shape, dt), sp in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        x, w, b, add, blocks = split_case(torch, groupnorm, shape, add_shape, sp, g, dt)
+        got, sums = split_run(torch, groupnorm, blocks, w, b, add, sp)
+        want_sums = groupnorm.group_norm_stats_plain(x, 32, add).double()
+        sums_err = float((sums - want_sums).abs().max() / want_sums.abs().max())
+        err, scale, _, ok_p = compare(got, groupnorm.group_norm_plain(x, w, b, 32, 1e-5, True, add), tol)
+        _, _, _, ok_one = compare(got, groupnorm.group_norm_kernel(x, w, b, 32, 1e-5, True, add), tol)
+        ok = ok_p and ok_one and sums_err <= 1e-4
+        worst["err"] = max(worst["err"], err / (tol * scale))
+        worst["sums"] = max(worst["sums"], sums_err)
+        if not ok:
+            worst["bad"].append((shape, add_shape, sp))
+        errs["gn_stats"] = max(errs["gn_stats"], float((sums - want_sums).abs().max()))
+        errs["gn_apply"] = max(errs["gn_apply"], err)
+        del x, blocks, got, add
+    ok_all &= not worst["bad"]
+    say(f"  (a) sweep: {len(shapes)} shapes, each over its sp blocks drawn apart, vs plain and one-launch A: worst "
+        f"max_abs_err {worst['err']:.3f} of its tolerance, worst sums rel err {worst['sums']:.3g} (tol 1e-4); "
+        f"failing {worst['bad'][:5]} in {time.perf_counter() - t0:.1f} s {'ok' if not worst['bad'] else 'FAIL'}")
+
+    flush = flush_l2(torch)
     rows = []
     for label, shape in SPLIT_GN_SHAPES:
         x, w, b, add = inputs(shape, (shape[0], 320))
@@ -2749,32 +2950,47 @@ def split_groupnorm_check(torch, groupnorm, card):
         # One rank's split form alone (one block, its own sums) is GroupNorm.
         err, sc, _, ok = compare(apply(), groupnorm.group_norm_plain(x, w, b, 32, 1e-5, True, add), tol)
         ok_all &= ok
-        dev = {k: profiled_kernel_ms(torch, fn, key, 10) for k, fn, key in (
-            ("stats", stats, "gn_stats"), ("apply", apply, "gn_apply"), ("both", both, ""), ("one", one, "gn_fused"),
+        timed = (("stats", stats, "gn_stats"), ("apply", apply, "gn_apply"), ("both", both, "gn_"),
+                 ("one", one, "gn_fused"))
+        dev = {k: profiled_kernel_ms(torch, fn, key, 10) for k, fn, key in timed + (
             ("plain_stats", plain_stats, ""), ("plain_apply", plain_apply, ""), ("lib_stats", lib_stats, ""),
             ("lib_apply", lib_apply, ""))}
-        call = {k: cuda_ms(fn) for k, fn in (("stats", stats), ("apply", apply), ("both", both), ("one", one))}
+        cold = {k: cold_kernel_ms(torch, fn, key, 2 if k == "both" else 1, flush) for k, fn, key in timed}
+        both_kernels = profiled_kernel_count(torch, both)
+        call = {k: cuda_ms(fn) for k, fn, _ in timed}
+        call_cold = {k: cold_event_ms(torch, fn, flush) for k, fn, _ in timed}
         el, sums_b = x.numel(), n * 64 * 8
         bnd_s, by_s = bound_ms(2 * el + 2 * add.numel() + sums_b, 3.0 * el, FP32_FLOPS)
         bnd_a, by_a = bound_ms(4 * el + 2 * add.numel() + sums_b + 8 * c, 10.0 * el, FP32_FLOPS)
         bnd_one, _ = bound_ms(4 * el + 2 * add.numel(), 10.0 * el, FP32_FLOPS)
+
+        def share(bound, k):
+            warm = "warm beats the HBM bound (L2)" if dev[k] < bound else f"warm {bound / dev[k]:.0%}"
+            return f"{bound / cold[k]:.0%} of it cold, {warm}"
+
         say(f"  (a) split A {label} {shape}, one block vs plain max_abs_err={err:.4g} (|ref|max {sc:.3g}, tol "
-            f"{tol:g}x) {'ok' if ok else 'FAIL'}; device ms: stats {dev['stats']:.4f} (bound {bnd_s:.4f} {by_s}, "
-            f"plain {dev['plain_stats']:.4f}, torch.var_mean {dev['lib_stats']:.4f}), apply {dev['apply']:.4f} "
-            f"(bound {bnd_a:.4f} {by_a}, plain {dev['plain_apply']:.4f}, F.group_norm {dev['lib_apply']:.4f}), "
-            f"stats + apply through the wrapper {dev['both']:.4f} (the sums' zero fill included) against one-launch "
-            f"A {dev['one']:.4f} (bound {bnd_one:.4f}); a call by CUDA events: stats {call['stats']:.4f}, apply "
-            f"{call['apply']:.4f}, through the wrapper {call['both']:.4f}, one-launch A {call['one']:.4f} on {card}")
+            f"{tol:g}x) {'ok' if ok else 'FAIL'}; device ms, L2 cold / warm: stats {cold['stats']:.4f} / "
+            f"{dev['stats']:.4f} (bound {bnd_s:.4f} {by_s}, {share(bnd_s, 'stats')}; plain {dev['plain_stats']:.4f}, "
+            f"torch.var_mean {dev['lib_stats']:.4f}), apply {cold['apply']:.4f} / {dev['apply']:.4f} (bound "
+            f"{bnd_a:.4f} {by_a}, {share(bnd_a, 'apply')}; plain {dev['plain_apply']:.4f}, F.group_norm "
+            f"{dev['lib_apply']:.4f}), stats + apply through the wrapper {cold['both']:.4f} / {dev['both']:.4f} "
+            f"({both_kernels} device kernels a call) against one-launch A {cold['one']:.4f} / {dev['one']:.4f} "
+            f"(bound {bnd_one:.4f}); a call by CUDA events cold / warm: stats {call_cold['stats']:.4f} / "
+            f"{call['stats']:.4f}, apply {call_cold['apply']:.4f} / {call['apply']:.4f}, through the wrapper "
+            f"{call_cold['both']:.4f} / {call['both']:.4f}, one-launch A {call_cold['one']:.4f} / {call['one']:.4f} "
+            f"on {card}")
+        ok_all &= both_kernels == 2
         if label == SPLIT_GN_SHAPES[0][0]:
-            rows.append(dict(name="gn_stats", max_abs_err=errs["gn_stats"], ms=dev["stats"], plain_ms=dev["plain_stats"],
-                             bound_ms=bnd_s, bound_by=by_s, library_ms=dev["lib_stats"]))
-            rows.append(dict(name="gn_apply", max_abs_err=errs["gn_apply"], ms=dev["apply"], plain_ms=dev["plain_apply"],
-                             bound_ms=bnd_a, bound_by=by_a, library_ms=dev["lib_apply"]))
+            rows.append(dict(name="gn_stats", max_abs_err=errs["gn_stats"], ms=cold["stats"],
+                             plain_ms=dev["plain_stats"], bound_ms=bnd_s, bound_by=by_s, library_ms=dev["lib_stats"]))
+            rows.append(dict(name="gn_apply", max_abs_err=errs["gn_apply"], ms=cold["apply"],
+                             plain_ms=dev["plain_apply"], bound_ms=bnd_a, bound_by=by_a, library_ms=dev["lib_apply"]))
         del x, add, sums, xv, xc
     torch.cuda.empty_cache()
     if not ok_all:
-        fail("kernel A's split form disagrees with the one-launch A or its plain version, or the check cannot see "
-             "a half normalised by its own statistics")
+        fail("kernel A's split form disagrees with the one-launch A or its plain version at a shape, the check "
+             "cannot see a half normalised by its own statistics, the sharded step's split calls are not its "
+             "GroupNorms, or a split GroupNorm is not two device kernels")
     return rows
 
 
@@ -3884,8 +4100,9 @@ def main() -> None:
     if graph_s > eager_s:
         fail("the un-fused graphed denoise step is slower than its eager step")
     torch.cuda.empty_cache()
-    direct_generate_check(torch, bundle, params, args.steps, 576, 1024, KernelConfig(), card, "default")
-    direct_generate_check(torch, bundle, params, args.steps, 320, 576, KernelConfig(**UNFUSED), card, "un-fused")
+    direct = min(args.steps, DIRECT_STEPS)
+    direct_generate_check(torch, bundle, params, direct, 576, 1024, KernelConfig(), card, "default")
+    direct_generate_check(torch, bundle, params, direct, 320, 576, KernelConfig(**UNFUSED), card, "un-fused")
     torch.cuda.empty_cache()
 
     # Phase 10: the data layer, the training CLI's loop, the inference driver.
@@ -3920,7 +4137,7 @@ def sharded_phase(torch, native, groupnorm, flash, bundle, params, args, per_req
     """Phase 11; returns its JSON rows (A's split form) and the launches of
     its sharded requests."""
     t0 = time.perf_counter()
-    rows = split_groupnorm_check(torch, groupnorm, card)
+    rows = split_groupnorm_check(torch, groupnorm, params, card)
     gathered_flash_check(torch, flash, card)
     sharded, lat11, tol11 = sharded_serving_check(torch, native, bundle, params, args.steps, per_request, card)
     torch.cuda.empty_cache()

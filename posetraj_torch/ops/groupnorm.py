@@ -16,6 +16,10 @@ group) [sum, sum of squares], the addend folded in), hands the (N, 2G)
 sums to `reduce` (the caller's all-reduce over the ranks that hold the
 other W blocks), then an apply launch that takes mean and rstd over
 `shards` times the local count. Inference only: it raises under grad.
+Each launch is one wave (`split_grid`, from the kernels' occupancy,
+`split_occupancy`), its CTAs on balanced ranges of the flattened rows; the
+statistics launch writes every row of its sums (no fill) from partials in
+a per-device workspace, the same bits on every run.
 `group_norm_plain(..., reduce=, shards=)` is its plain version, with
 float32 partials as the JAX package's _ref_group_norm
 (group_norm_stats_plain, then group_norm_apply_plain).
@@ -23,6 +27,8 @@ float32 partials as the JAX package's _ref_group_norm
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -183,10 +189,12 @@ def _workspace(device: torch.device, groups: int):
 
 
 def workspaces() -> tuple:
-    """Every device's workspace as it stands. A CUDA graph that captured
-    kernel A holds these, since its launches point into them and a later
-    call with more groups replaces (and frees) a device's workspace."""
-    return tuple(_WORKSPACE.values())
+    """Every device's workspaces as they stand, the one launch's and the
+    split form's. A CUDA graph that captured kernel A holds these, since its
+    launches point into them and a later call with more groups (or, in the
+    split form, more CTAs' partials or samples) replaces (and frees) a
+    device's workspace."""
+    return tuple(_WORKSPACE.values()) + tuple(_SPLIT_WORKSPACE.values())
 
 
 def _kernel_inputs(x, weight, bias, num_groups: int, add):
@@ -240,32 +248,94 @@ def group_norm_kernel(x, weight, bias, num_groups: int, eps: float, act: bool, a
     return y
 
 
-# The split form's launches: a grid of (blocks, n) CTAs of THREADS threads,
-# blocks a sample enough for SPLIT_CTAS_PER_SM CTAs an SM over the n
-# samples, and no more than give each thread of a CTA one row.
-SPLIT_CTAS_PER_SM = 4
+# The split form's workspace on each device: (float32 partials, uint32
+# arrival counters a sample), grown as calls need; the counters are zeroed
+# when made and left zero by every statistics launch.
+_SPLIT_WORKSPACE = {}
+_SPLIT_OCCUPANCY = {}
 
 
-def split_blocks(n: int, s: int, c: int, itemsize: int, sms: int) -> int:
-    """CTAs a sample of the split form's two launches."""
+def split_grid(n: int, s: int, c: int, itemsize: int, ctas_per_sm: int, sms: int) -> int:
+    """CTAs of one split-form launch over x (n, s, c): one wave (the
+    `ctas_per_sm` CTAs an SM holds at once, as the occupancy calculator
+    reports them for the kernel, on each of `sms` SMs), and no more than
+    give each thread of a CTA one row. CTA b takes the flattened rows [b R /
+    grid, (b + 1) R / grid) of R = n s, across sample boundaries."""
     rows_a_pass = THREADS // (c * itemsize // 16)
-    return max(1, min(-(-s // rows_a_pass), -(-SPLIT_CTAS_PER_SM * sms // n)))
+    return max(1, min(ctas_per_sm * sms, -(-n * s // rows_a_pass)))
+
+
+def split_ctas_a_sample(n: int, s: int, grid: int) -> int:
+    """The most CTAs of `grid` whose rows reach one sample: the statistics
+    launch's partials a sample (each such CTA writes one)."""
+    return -(-s // (n * s // grid)) + 1
+
+
+def split_occupancy(device: torch.device, dtype: torch.dtype) -> tuple:
+    """(CTAs an SM holds of the statistics kernel, of the apply kernel) for
+    `dtype`, as the compiled library reports them; asked once a device."""
+    key = (device.index, dtype)
+    got = _SPLIT_OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 2)()
+        err = _native.library(NAME).pt_group_norm_split_occupancy(int(dtype == torch.bfloat16), out)
+        if err != 0 or min(out) < 1:
+            raise RuntimeError(f"group_norm split form: no occupancy for {dtype} (CUDA error {err})")
+        got = _SPLIT_OCCUPANCY[key] = (out[0], out[1])
+    return got
+
+
+def _split_workspace(device: torch.device, floats: int, n: int):
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    ws = _SPLIT_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < n:
+        floats = max(floats, ws[0].numel() if ws else 0)
+        n = max(n, ws[1].numel() if ws else 0)
+        ws = _SPLIT_WORKSPACE[key] = (torch.empty(floats, dtype=torch.float32, device=device),
+                                      torch.zeros(n, dtype=torch.int32, device=device))
+    return ws
+
+
+@functools.lru_cache(maxsize=1024)
+def _split_plan(index: int, dtype: torch.dtype, n: int, s: int, c: int, num_groups: int) -> tuple:
+    """(statistics grid, its partials a sample, apply grid) of the split
+    form on device `index`, worked out once a shape."""
+    device = torch.device("cuda", index)
+    occupancy, sms, itemsize = split_occupancy(device, dtype), _sms(device), dtype.itemsize
+    grid = split_grid(n, s, c, itemsize, occupancy[0], sms)
+    return grid, split_ctas_a_sample(n, s, grid), split_grid(n, s, c, itemsize, occupancy[1], sms)
+
+
+def _launch_stats(x, add, n: int, s: int, frames: int, num_groups: int) -> torch.Tensor:
+    c = x.shape[-1]
+    grid, mmax, _ = _split_plan(x.get_device(), x.dtype, n, s, c, num_groups)
+    part, arrivals = _split_workspace(x.device, n * mmax * 2 * num_groups, n)
+    sums = torch.empty(n, 2 * num_groups, dtype=torch.float64, device=x.device)
+    P, I, L = _native.P, _native.I, _native.L
+    _native.call(NAME, "pt_group_norm_stats", [P, P, P, P, P, L, L, I, I, I, I, I, I],
+                 _native.ptr(x), _native.ptr(add), _native.ptr(part), _native.ptr(arrivals), _native.ptr(sums),
+                 n, s, c, num_groups, frames, int(x.dtype == torch.bfloat16), grid, mmax, count="gn_stats")
+    return sums
+
+
+def _launch_apply(x, weight, bias, sums, add, n: int, s: int, frames: int, num_groups: int, eps: float, act: bool,
+                  shards: int) -> torch.Tensor:
+    c = x.shape[-1]
+    grid = _split_plan(x.get_device(), x.dtype, n, s, c, num_groups)[2]
+    y = torch.empty_like(x)
+    P, I, L, Fl, D = _native.P, _native.I, _native.L, _native.Fl, _native.D
+    _native.call(NAME, "pt_group_norm_apply", [P, P, P, P, P, P, L, L, I, I, I, D, Fl, I, I, I],
+                 _native.ptr(x), _native.ptr(weight), _native.ptr(bias), _native.ptr(add), _native.ptr(sums),
+                 _native.ptr(y), n, s, c, num_groups, frames, float(s * (c // num_groups) * shards), float(eps),
+                 int(act), int(x.dtype == torch.bfloat16), grid, count="gn_apply")
+    return y
 
 
 def group_norm_stats_kernel(x, num_groups: int, add=None) -> torch.Tensor:
     """The split form's statistics launch: x (N, ..., C) [+ add] -> (N, 2G)
     float64 [sum | sum of squares] of each (sample, group) over x's rows."""
     n, s, frames, add, _, _ = _kernel_inputs(x, None, None, num_groups, add)
-    if n > 65535:
-        raise ValueError(f"group_norm split form: {n} samples (at most 65535)")
-    sums = torch.zeros(n, 2 * num_groups, dtype=torch.float64, device=x.device)
-    c = x.shape[-1]
-    P, I, L = _native.P, _native.I, _native.L
-    _native.call(NAME, "pt_group_norm_stats", [P, P, P, L, L, I, I, I, I, I],
-                 _native.ptr(x), _native.ptr(add), _native.ptr(sums), n, s, c, num_groups, frames,
-                 int(x.dtype == torch.bfloat16), split_blocks(n, s, c, x.element_size(), _sms(x.device)),
-                 count="gn_stats")
-    return sums
+    return _launch_stats(x, add, n, s, frames, num_groups)
 
 
 def group_norm_apply_kernel(x, weight, bias, sums, num_groups: int, eps: float, act: bool, add=None,
@@ -278,20 +348,14 @@ def group_norm_apply_kernel(x, weight, bias, sums, num_groups: int, eps: float, 
         raise ValueError(f"group_norm apply: sums {tuple(sums.shape)} {sums.dtype}, expected "
                          f"({n}, {2 * num_groups}) float64")
     _native.check_cuda("group_norm_apply", sums=sums)
-    c = x.shape[-1]
-    y = torch.empty_like(x)
-    P, I, L, Fl, D = _native.P, _native.I, _native.L, _native.Fl, _native.D
-    _native.call(NAME, "pt_group_norm_apply", [P, P, P, P, P, P, L, L, I, I, I, D, Fl, I, I, I],
-                 _native.ptr(x), _native.ptr(weight), _native.ptr(bias), _native.ptr(add), _native.ptr(sums),
-                 _native.ptr(y), n, s, c, num_groups, frames, float(s * (c // num_groups) * shards), float(eps),
-                 int(act), int(x.dtype == torch.bfloat16), split_blocks(n, s, c, x.element_size(), _sms(x.device)),
-                 count="gn_apply")
-    return y
+    return _launch_apply(x, weight, bias, sums, add, n, s, frames, num_groups, eps, act, shards)
 
 
 def group_norm_split_kernel(x, weight, bias, num_groups: int, eps: float, act: bool, add=None, reduce=None,
                             shards: int = 1) -> torch.Tensor:
     """Kernel A's split form on the card: statistics launch, `reduce` of the
-    (N, 2G) sums, apply launch."""
-    sums = reduce(group_norm_stats_kernel(x, num_groups, add))
-    return group_norm_apply_kernel(x, weight, bias, sums, num_groups, eps, act, add, shards)
+    (N, 2G) sums, apply launch; the inputs checked and converted once for
+    both."""
+    n, s, frames, add, weight, bias = _kernel_inputs(x, weight, bias, num_groups, add)
+    sums = reduce(_launch_stats(x, add, n, s, frames, num_groups))
+    return _launch_apply(x, weight, bias, sums, add, n, s, frames, num_groups, eps, act, shards)

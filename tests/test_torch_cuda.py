@@ -33,7 +33,10 @@ The temp hint encoder (A, then B in each of its blocks) is held to B's
 tolerances on its branch, the output minus the conv stack's. Kernel A's
 split form (the statistics of two W blocks summed, then the apply of each)
 takes A's tolerance, its float64 sums within 1e-4 of the plain float32
-statistics; generate_sharded on a (1, 1) mesh launches what generate()
+statistics, also at the sharded path's rank-local shapes over sp blocks;
+its sums are bitwise alike over repeated calls, a call is two device
+kernels, a CUDA graph replays it bit for bit, and tools/gn_split_profile's
+phase stamps come in order; generate_sharded on a (1, 1) mesh launches what generate()
 launches with C and D off and lands within 2e-2 relative RMS of its
 latents. Trainer(mesh=) on a (1, 1) mesh through a one-rank NCCL group
 is bit for bit the unsharded Trainer. tools/kernel_sweep replays one
@@ -531,6 +534,135 @@ def test_cuda_group_norm_alternating_team_sizes():
     for i, got in enumerate(outs):
         x = xs[i % 3]
         _check(got, groupnorm.group_norm_plain(x, w[: x.shape[-1]], b[: x.shape[-1]], 32, 1e-5, False), 2e-2)
+
+
+# The split form at rank-local shapes of the sharded path at 14x576x1024 (x
+# before the W cut into `sp` blocks, add): the smallest deep level at sp =
+# 4, (14, 9, 4, 1280) a rank; a row count that no grid divides; per-frame
+# addends whose frames cross CTA ranges, n = 1 (a temporal resnet's fold on
+# a (2, x) mesh) and n = 2; the CFG batch of 28 on a (1, 2) mesh; float32.
+SPLIT_CASES = [
+    ((14, 9, 16, 1280), (14, 1280), 4, torch.bfloat16),
+    ((5, 37, 82, 320), (5, 320), 2, torch.bfloat16),
+    ((1, 14, 72, 128, 320), (1, 14, 320), 4, torch.bfloat16),
+    ((2, 14, 18, 32, 1280), (2, 14, 1280), 2, torch.bfloat16),
+    ((28, 36, 64, 640), (28, 640), 2, torch.bfloat16),
+    ((3, 37, 82, 128), None, 2, torch.float32),
+]
+
+
+def _split_inputs(shape, add_shape, sp, dtype, seed):
+    """x with its `sp` W blocks drawn apart (block j scaled 1 + j, shifted by
+    j), weight, bias, addend, and the blocks."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c, w_axis = shape[-1], len(shape) - 2
+    x = torch.randn(*shape, generator=g, device="cuda") + 0.5
+    for j, blk in enumerate(x.chunk(sp, dim=w_axis)):
+        blk.mul_(1.0 + j).add_(float(j))
+    x = x.to(dtype)
+    w = torch.rand(c, generator=g, device="cuda") + 0.5
+    b = torch.randn(c, generator=g, device="cuda") * 0.1
+    add = torch.randn(*add_shape, generator=g, device="cuda").to(dtype) if add_shape else None
+    return x, w, b, add, [blk.contiguous() for blk in x.chunk(sp, dim=w_axis)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,add_shape,sp,dtype", SPLIT_CASES)
+def test_cuda_group_norm_split_rank_local_shapes(shape, add_shape, sp, dtype):
+    """The split form over `sp` W blocks at the sharded path's rank-local
+    shapes (the statistics of every block summed, then the apply of each)
+    against the plain unsplit GroupNorm and the one-launch A (A's
+    tolerance); the float64 sums within 1e-4 of the plain float32
+    statistics; one launch of each kernel a block."""
+    _need_cuda()
+    x, w, b, add, blocks = _split_inputs(shape, add_shape, sp, dtype, sum(shape) + sp)
+    w_axis = len(shape) - 2
+    _native.reset_launches()
+    sums = sum(groupnorm.group_norm_stats_kernel(blk, 32, add) for blk in blocks)
+    got = torch.cat([groupnorm.group_norm_apply_kernel(blk, w, b, sums, 32, 1e-5, True, add, shards=sp)
+                     for blk in blocks], dim=w_axis)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["gn_stats"] == sp and _native.LAUNCHES["gn_apply"] == sp
+    want_sums = groupnorm.group_norm_stats_plain(x, 32, add).double()
+    assert float((sums - want_sums).abs().max()) <= 1e-4 * float(want_sums.abs().max())
+    _check(got, groupnorm.group_norm_plain(x, w, b, 32, 1e-5, True, add), 2e-2)
+    _check(got, groupnorm.group_norm_kernel(x, w, b, 32, 1e-5, True, add), 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_split_sums_are_deterministic():
+    """The statistics of the (2, 4)-local level 0 and of a per-frame fold:
+    five calls give the same bits (no atomics on the sums), within 1e-4 of
+    the plain float32 statistics."""
+    _need_cuda()
+    for shape, add_shape in (((14, 72, 32, 320), (14, 320)), ((1, 14, 72, 32, 320), (1, 14, 320))):
+        x, _, _, add, _ = _split_inputs(shape, add_shape, 1, torch.bfloat16, 77)
+        runs = [groupnorm.group_norm_stats_kernel(x, 32, add) for _ in range(5)]
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+        want = groupnorm.group_norm_stats_plain(x, 32, add).double()
+        assert float((runs[0] - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_split_is_two_device_kernels():
+    """A split GroupNorm through the wrapper is exactly one gn_stats and one
+    gn_apply device kernel, by torch.profiler: no fill before the
+    statistics, no copy of an input."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b, add, _ = _split_inputs((14, 72, 32, 320), (14, 320), 1, torch.bfloat16, 78)
+    groupnorm.group_norm(x, w, b, 32, 1e-5, True, add, lambda t: t, 1)  # the workspace made
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):  # spin kernels take the first records, which a window can miss
+            torch.cuda._sleep(1000)
+        groupnorm.group_norm(x, w, b, 32, 1e-5, True, add, lambda t: t, 1)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.name]
+    assert len(names) == 2, names
+    assert sum("gn_stats" in n for n in names) == 1 and sum("gn_apply" in n for n in names) == 1, names
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_split_captures_in_a_graph():
+    """Statistics, an identity reduce and the apply captured in one CUDA
+    graph and replayed (on new inputs copied into its buffer) give the eager
+    call's bits: the arrival counters reset themselves, the sums need no
+    fill."""
+    _need_cuda()
+    x, w, b, add, _ = _split_inputs((14, 72, 32, 320), (14, 320), 1, torch.bfloat16, 79)
+    run = lambda: groupnorm.group_norm(x, w, b, 32, 1e-5, True, add, lambda t: t, 1)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # workspaces made outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for seed in (80, 81):
+        x.copy_(_split_inputs((14, 72, 32, 320), (14, 320), 1, torch.bfloat16, seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, run())
+
+
+@pytest.mark.cuda
+def test_cuda_gn_split_profile_stamps():
+    """tools/gn_split_profile: the split kernels built with their phase
+    stamps run through ops/groupnorm's launches, and every CTA's stamps
+    come in phase order, cold and warm, for a per-frame addend whose frames
+    cross CTA ranges."""
+    _need_cuda()
+    from posetraj_torch.tools import gn_split_profile
+
+    records = gn_split_profile.profile((1, 3, 15, 40, 64), 3, 1)
+    assert [(r[0], r[1]) for r in records] == [("gn_stats", "cold"), ("gn_apply", "cold"), ("gn_stats", "warm"),
+                                              ("gn_apply", "warm")]
+    for _, _, _, t in records:
+        assert t.shape[0] > 1 and (t > 0).all() and (t[:, 1:] >= t[:, :-1]).all()
 
 
 # D's frame attention alone: F in {1, 8, 14, 16} (16: one full mma tile, no
