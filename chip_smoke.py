@@ -306,8 +306,17 @@ def _profiled(torch, fn, calls: int, flush=None):
                 flush()
             fn()
         torch.cuda.synchronize()
-    return [ev for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.name]
+    return device_kernels(torch, prof)
+
+
+def device_kernels(torch, prof):
+    """The kernels of a torch.profiler window: its CUDA-device events less
+    the spin kernels (PROFILE_PREROLL) and the user annotations, the
+    mirrors that the program's spans (utils/profiling.py, on while a
+    profiler records) leave on the device's timeline over the kernels they
+    cover."""
+    return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.is_user_annotation and "spin_kernel" not in ev.name]
 
 
 def profiled_kernel_ms(torch, fn, key: str, calls: int = 3) -> float:
@@ -1027,7 +1036,7 @@ PROFILE_PREROLL = 64
 
 def profile_step(torch, step):
     """One warm step under torch.profiler: wall time, summed device time of
-    its kernels, and that time grouped by _kernel_group."""
+    its kernels (device_kernels), and that time grouped by _kernel_group."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -1045,11 +1054,10 @@ def profile_step(torch, step):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.name:
-            gr = groups[_kernel_group(ev.name)]
-            gr[0] += (ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total) / 1e3
-            gr[1] += 1
+    for ev in device_kernels(torch, prof):
+        gr = groups[_kernel_group(ev.name)]
+        gr[0] += (ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total) / 1e3
+        gr[1] += 1
     return wall_ms, dict(groups)
 
 

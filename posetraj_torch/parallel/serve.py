@@ -44,6 +44,7 @@ from posetraj_torch.ops.primitives import set_float32_precision
 from posetraj_torch.parallel import spmd
 from posetraj_torch.parallel.spmd import ServeMesh
 from posetraj_torch.pipeline import svd_controlnet as pipe_m
+from posetraj_torch.utils.profiling import count, span
 
 
 def make_serve_mesh(n_cfg: int = 2, n_sp: int = 4, device=None) -> ServeMesh:
@@ -145,6 +146,7 @@ def _cfg_rows(x: Optional[torch.Tensor], mesh: ServeMesh) -> Optional[torch.Tens
 
 
 @torch.inference_mode()
+@pipe_m.request_span()
 def generate_sharded(params: Dict, bundle, pcfg: PipelineConfig, image, control_video, noises: Dict,
                      added_time_ids, sigmas, timesteps, num_frames: int, mesh: ServeMesh, camera_cond=None,
                      bbox_cond=None, rot_id=None, output_latent: bool = False, compute_dtype=None) -> torch.Tensor:
@@ -159,30 +161,38 @@ def generate_sharded(params: Dict, bundle, pcfg: PipelineConfig, image, control_
         if device.type == "cuda":
             set_float32_precision()
         dt = compute_dtype or default_compute_dtype(device)
-        image = pipe_m._as_tensor(image, device)
-        if image.shape[0] != 1:
-            raise ValueError(f"single-video serving takes batch 1, got {image.shape[0]}")
-        replicated_h, replicated_s = _check_divisible(pcfg, bundle, num_frames, mesh.n_cfg, mesh.n_sp)
-        ctx = spmd.SpmdCtx(mesh, replicated_h, replicated_s)
-        sigmas = pipe_m._as_tensor(sigmas, device)
-        timesteps = pipe_m._as_tensor(timesteps, device)
+        with span("posetraj/prepare"):
+            image = pipe_m._as_tensor(image, device)
+            if image.shape[0] != 1:
+                raise ValueError(f"single-video serving takes batch 1, got {image.shape[0]}")
+            replicated_h, replicated_s = _check_divisible(pcfg, bundle, num_frames, mesh.n_cfg, mesh.n_sp)
+            ctx = spmd.SpmdCtx(mesh, replicated_h, replicated_s)
+            sigmas = pipe_m._as_tensor(sigmas, device)
+            timesteps = pipe_m._as_tensor(timesteps, device)
+            image_aug = pipe_m._as_tensor(noises["image_aug"], device)
+            noise = pipe_m._as_tensor(noises["latents"], device)
+            control_video = pipe_m._as_tensor(control_video, device)
+            time_ids = pipe_m._as_tensor(added_time_ids, device)
+            camera_cond = None if camera_cond is None else pipe_m._as_tensor(camera_cond, device)
+            bbox_cond = None if bbox_cond is None else pipe_m._as_tensor(bbox_cond, device)
+            rot_id = None if rot_id is None else pipe_m._as_tensor(rot_id, device, torch.long)
 
         # Encode, replicated on every rank.
-        clip_emb = pipe_m.encode_image_clip(params, bundle, image, dt)
-        image_latents = pipe_m.encode_image_vae(params, bundle, image * 2.0 - 1.0,
-                                                pipe_m._as_tensor(noises["image_aug"], device),
-                                                pcfg.noise_aug_strength)
+        with span("posetraj/clip", device=device):
+            clip_emb = pipe_m.encode_image_clip(params, bundle, image, dt)
+        with span("posetraj/vae_encode", device=device):
+            image_latents = pipe_m.encode_image_vae(params, bundle, image * 2.0 - 1.0, image_aug,
+                                                    pcfg.noise_aug_strength)
         init_sigma = sigmas[0] if bundle.scheduler.timestep_spacing in ("linspace", "trailing") \
             else torch.sqrt(sigmas[0] ** 2 + 1.0)
-        latents = pipe_m._as_tensor(noises["latents"], device) * init_sigma
-        control = (pipe_m._as_tensor(control_video, device) * 2.0 - 1.0).to(dt)
+        latents = noise * init_sigma
+        control = (control_video * 2.0 - 1.0).to(dt)
         guidance = torch.linspace(pcfg.min_guidance_scale, pcfg.max_guidance_scale, num_frames, device=device)
-        time_ids = pipe_m._as_tensor(added_time_ids, device)
         cfg2 = lambda x: None if x is None else torch.cat([x, x], dim=0)
-        camera_cond = cfg2(None if camera_cond is None else pipe_m._as_tensor(camera_cond, device))
+        camera_cond = cfg2(camera_cond)
         if bbox_cond is not None:
-            bbox_cond = cfg2(pipe_m._as_tensor(bbox_cond, device) * 2.0 - 1.0).to(dt)
-        rot_id = cfg2(None if rot_id is None else pipe_m._as_tensor(rot_id, device, torch.long))
+            bbox_cond = cfg2(bbox_cond * 2.0 - 1.0).to(dt)
+        rot_id = cfg2(rot_id)
 
         # This rank's (cfg, sp) block of every input of the loop.
         w_block = lambda x: None if x is None else spmd.scatter_w(x, ctx)
@@ -194,7 +204,8 @@ def generate_sharded(params: Dict, bundle, pcfg: PipelineConfig, image, control_
         latents = spmd.gather_w(latents, ctx)
         if output_latent:
             return latents
-        frames = _decode_sharded(params, bundle, latents, pcfg.decode_chunk_size, mesh, dt)
+        with span("posetraj/decode", device=device):
+            frames = _decode_sharded(params, bundle, latents, pcfg.decode_chunk_size, mesh, dt)
         return (frames / 2.0 + 0.5).clamp(0.0, 1.0)
 
 
@@ -210,9 +221,11 @@ def _denoise_sharded(params, bundle, pcfg, ctx: spmd.SpmdCtx, lat, img_lat, clip
     ids = ctx.mesh.cfg_rank * b_loc + torch.arange(b_loc, device=lat.device)
     coeff = torch.where(ids.reshape(-1, 1, 1, 1, 1) == 0, 1.0 - gs, gs)  # (b_loc, F, 1, 1, 1)
     with spmd.spatial_sharding(ctx):
-        hint = cn.hint_encoder(params["controlnet"]["controlnet_cond_embedding"], bundle.controlnet.hint,
-                               control, f, camera_cond=camera_cond, bbox_cond=bbox_cond, rot_id=rot_id,
-                               compute_dtype=dt)
+        with span("posetraj/hint", device=lat.device):
+            hint = cn.hint_encoder(params["controlnet"]["controlnet_cond_embedding"], bundle.controlnet.hint,
+                                   control, f, camera_cond=camera_cond, bbox_cond=bbox_cond, rot_id=rot_id,
+                                   compute_dtype=dt)
+        count("denoise.eager_steps", timesteps.shape[0])
         for i in range(timesteps.shape[0]):
             lat_in = (lat.expand(b_loc, -1, -1, -1, -1) / torch.sqrt(sigmas[i] ** 2 + 1.0)).to(dt)
             lat_in = torch.cat([lat_in, img5], dim=-1)

@@ -14,11 +14,14 @@ Entry points run on `cuda` unless the caller passes `device="cpu"`. The
 compute dtype is an argument: by default bf16 on the card and float32 on the
 CPU, as the JAX package picks by backend. `generate()` runs under the
 bundle's KernelConfig (`ModelBundle.kernels`; None takes the POSETRAJ_*
-variables, read when the call starts).
+variables, read when the call starts). While a torch profiler records, the
+request's stages and the graph's load and replays are spans and counters of
+utils/profiling.py (request_span, the posetraj/* names).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import weakref
@@ -47,6 +50,7 @@ from posetraj_torch.models import unet as unet_m
 from posetraj_torch.models import vae as vae_m
 from posetraj_torch.ops.primitives import set_float32_precision
 from posetraj_torch.ops.resize import resize_antialias
+from posetraj_torch.utils.profiling import TIMER, count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +151,8 @@ def denoise(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, latents: to
         return denoise_eager(params, bundle, pcfg, latents, image_latents, clip_embeddings, control_video,
                              added_time_ids, sigmas, timesteps, guidance_scale, compute_dtype, camera_cond,
                              bbox_cond, rot_id)
-    hint = _hint(params, bundle, control_video, latents.shape[1], compute_dtype, camera_cond, bbox_cond, rot_id)
+    with span("posetraj/hint", device=latents.device):
+        hint = _hint(params, bundle, control_video, latents.shape[1], compute_dtype, camera_cond, bbox_cond, rot_id)
     img_lat = _image_latents(image_latents, latents, compute_dtype)
     global _SHARED_GRAPH
     if graph is None:
@@ -164,10 +169,12 @@ def denoise_eager(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, laten
     """The sampling loop as a plain Python loop over the sigma ladder, every
     op issued from the host: the CPU's path, and on the card the reference
     the captured graph is held against. Arguments as denoise's."""
-    hint = _hint(params, bundle, control_video, latents.shape[1], compute_dtype, camera_cond, bbox_cond, rot_id)
+    with span("posetraj/hint", device=latents.device):
+        hint = _hint(params, bundle, control_video, latents.shape[1], compute_dtype, camera_cond, bbox_cond, rot_id)
     img_lat = _image_latents(image_latents, latents, compute_dtype)
     gs = _guidance(guidance_scale)
     lat = latents.float()
+    count("denoise.eager_steps", timesteps.shape[0])
     for i in range(timesteps.shape[0]):
         lat = _denoise_step(params, bundle, pcfg, lat, img_lat, clip_embeddings, added_time_ids, hint, gs,
                             sigmas[i], sigmas[i + 1], timesteps[i], compute_dtype)
@@ -271,9 +278,10 @@ class DenoiseGraph:
         n = timesteps.shape[0]
         if n == 0:
             return latents.float()
-        ready = self.load(params, bundle, pcfg, dt, latents=latents.float(), image_latents=img_lat,
-                          clip=clip_embeddings, time_ids=added_time_ids, hint=hint, guidance=gs, sigmas=sigmas,
-                          timesteps=timesteps)
+        with span("posetraj/denoise/load"):
+            ready = self.load(params, bundle, pcfg, dt, latents=latents.float(), image_latents=img_lat,
+                              clip=clip_embeddings, time_ids=added_time_ids, hint=hint, guidance=gs, sigmas=sigmas,
+                              timesteps=timesteps)
         step = lambda: graph_step(params, bundle, pcfg, self.buffers, dt)
         done = 0
         if not ready:
@@ -283,15 +291,18 @@ class DenoiseGraph:
                 step()
             torch.cuda.current_stream().wait_stream(stream)
             done = 1
+            count("denoise.eager_steps")
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             with _native.capturing_launches() as per_replay, torch.cuda.graph(graph, stream=stream):
                 step()
             self.capture_s = time.perf_counter() - t0
             self._graph, self._per_replay, self._held = graph, per_replay, groupnorm.workspaces()
-        for _ in range(done, n):
-            self._graph.replay()
-            _native.add_launches(self._per_replay)
+        with span("posetraj/denoise/replay", device=latents.device):
+            for _ in range(done, n):
+                self._graph.replay()
+                _native.add_launches(self._per_replay)
+        count("denoise.replays", n - done)
         return self.buffers["latents"].clone()
 
 
@@ -328,7 +339,21 @@ def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(device=device, dtype=dtype)
 
 
+@contextlib.contextmanager
+def request_span():
+    """The span `posetraj/request` and the count `requests` (while a torch
+    profiler records) around a request: the pipeline's call, or generate()
+    or generate_sharded() called alone; inside an open span, nothing."""
+    if TIMER.depth:
+        yield
+        return
+    with span("posetraj/request"):
+        count("requests")
+        yield
+
+
 @torch.inference_mode()
+@request_span()
 def generate(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, image, control_video, noises: Dict,
              added_time_ids, sigmas, timesteps, num_frames: int, camera_cond=None, bbox_cond=None, rot_id=None,
              output_latent: bool = False, device=None, compute_dtype=None,
@@ -351,32 +376,40 @@ def generate(params: Dict, bundle: ModelBundle, pcfg: PipelineConfig, image, con
         if device.type == "cuda":
             set_float32_precision()
         dt = compute_dtype or default_compute_dtype(device)
-        image = _as_tensor(image, device)
-        control_video = _as_tensor(control_video, device)
-        sigmas = _as_tensor(sigmas, device)
-        timesteps = _as_tensor(timesteps, device)
-        time_ids = _as_tensor(added_time_ids, device)
+        with span("posetraj/prepare"):
+            image = _as_tensor(image, device)
+            control_video = _as_tensor(control_video, device)
+            sigmas = _as_tensor(sigmas, device)
+            timesteps = _as_tensor(timesteps, device)
+            time_ids = _as_tensor(added_time_ids, device)
+            image_aug = _as_tensor(noises["image_aug"], device)
+            noise = _as_tensor(noises["latents"], device)
+            camera_cond = None if camera_cond is None else _as_tensor(camera_cond, device)
+            bbox_cond = None if bbox_cond is None else _as_tensor(bbox_cond, device)
+            rot_id = None if rot_id is None else _as_tensor(rot_id, device, torch.long)
 
-        clip_emb = encode_image_clip(params, bundle, image, dt)
-        image_latents = encode_image_vae(params, bundle, image * 2.0 - 1.0, _as_tensor(noises["image_aug"], device),
-                                         pcfg.noise_aug_strength)
+        with span("posetraj/clip", device=device):
+            clip_emb = encode_image_clip(params, bundle, image, dt)
+        with span("posetraj/vae_encode", device=device):
+            image_latents = encode_image_vae(params, bundle, image * 2.0 - 1.0, image_aug, pcfg.noise_aug_strength)
         init_sigma = sigmas[0] if bundle.scheduler.timestep_spacing in ("linspace", "trailing") \
             else torch.sqrt(sigmas[0] ** 2 + 1.0)
-        latents = _as_tensor(noises["latents"], device) * init_sigma
+        latents = noise * init_sigma
         control = (control_video * 2.0 - 1.0).to(dt)
         control = torch.cat([control, control], dim=0)
         guidance = torch.linspace(pcfg.min_guidance_scale, pcfg.max_guidance_scale, num_frames, device=device)
         time_ids = torch.cat([time_ids, time_ids], dim=0)
         cfg2 = lambda x: None if x is None else torch.cat([x, x], dim=0)
-        camera_cond = cfg2(None if camera_cond is None else _as_tensor(camera_cond, device))
+        camera_cond = cfg2(camera_cond)
         if bbox_cond is not None:
-            bbox_cond = cfg2(_as_tensor(bbox_cond, device) * 2.0 - 1.0).to(dt)
-        rot_id = cfg2(None if rot_id is None else _as_tensor(rot_id, device, torch.long))
+            bbox_cond = cfg2(bbox_cond * 2.0 - 1.0).to(dt)
+        rot_id = cfg2(rot_id)
         latents = denoise(params, bundle, pcfg, latents, image_latents, clip_emb, control, time_ids, sigmas, timesteps,
                           guidance, dt, camera_cond, bbox_cond, rot_id, graph=graph)
         if output_latent:
             return latents
-        frames = decode_latents(params, bundle, latents, pcfg.decode_chunk_size, dt)
+        with span("posetraj/decode", device=device):
+            frames = decode_latents(params, bundle, latents, pcfg.decode_chunk_size, dt)
         return (frames / 2.0 + 0.5).clamp(0.0, 1.0)
 
 
@@ -424,6 +457,7 @@ class SVDControlNetPipeline:
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
         self.graph = DenoiseGraph()
 
+    @request_span()
     def __call__(self, image, controlnet_condition, height: int = 576, width: int = 1024, num_frames: int = 14,
                  num_inference_steps: int = 25, min_guidance_scale: float = 1.0, max_guidance_scale: float = 3.0,
                  fps: int = 7, motion_bucket_id: int = 127, noise_aug_strength: float = 0.02,
@@ -436,37 +470,39 @@ class SVDControlNetPipeline:
             motion_bucket_id=motion_bucket_id, noise_aug_strength=noise_aug_strength,
             controlnet_cond_scale=controlnet_cond_scale, decode_chunk_size=decode_chunk_size or num_frames,
         )
-        image = _to_float_array(image)
-        control = _to_float_array(controlnet_condition)
-        if control.ndim == 4:
-            control = control[None]
-        b = image.shape[0]
-        sf = self.bundle.vae.scale_factor
-        lat_shape = (b, num_frames, height // sf, width // sf, self.bundle.vae.latent_channels)
-        if noises is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            noises = {
-                "latents": torch.randn(lat_shape, generator=gen, device=self.device),
-                "image_aug": torch.randn(image.shape, generator=gen, device=self.device),
-            }
-        sched = make_schedule(self.bundle.scheduler, num_inference_steps)
-        time_ids = np.tile(added_time_ids_inference(pcfg), (b, 1))
-        bbox = None if bbox_condition is None else _to_float_array(bbox_condition)
-        if self.mesh is not None:
-            return self._postprocess(self._call_mesh(pcfg, image, control, noises, time_ids, sched, camera_cond,
-                                                     bbox, rot_id, output_type).cpu().numpy(), output_type)
+        with span("posetraj/prepare"):
+            image = _to_float_array(image)
+            control = _to_float_array(controlnet_condition)
+            if control.ndim == 4:
+                control = control[None]
+            b = image.shape[0]
+            sf = self.bundle.vae.scale_factor
+            lat_shape = (b, num_frames, height // sf, width // sf, self.bundle.vae.latent_channels)
+            if noises is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+                noises = {
+                    "latents": torch.randn(lat_shape, generator=gen, device=self.device),
+                    "image_aug": torch.randn(image.shape, generator=gen, device=self.device),
+                }
+            sched = make_schedule(self.bundle.scheduler, num_inference_steps)
+            time_ids = np.tile(added_time_ids_inference(pcfg), (b, 1))
+            bbox = None if bbox_condition is None else _to_float_array(bbox_condition)
         args = (self.params, self.bundle, pcfg, image, control, noises, time_ids, sched.sigmas, sched.timesteps,
                 num_frames)
         kw = dict(camera_cond=camera_cond, rot_id=rot_id, output_latent=(output_type == "latent"), bbox_cond=bbox,
                   compute_dtype=self.compute_dtype)
-        if self.serve_mesh is not None and b == 1:
+        if self.mesh is not None:
+            frames = self._call_mesh(pcfg, image, control, noises, time_ids, sched, camera_cond, bbox, rot_id,
+                                     output_type)
+        elif self.serve_mesh is not None and b == 1:
             from posetraj_torch.parallel.serve import generate_sharded
 
             frames = generate_sharded(*args, self.serve_mesh, **kw)
         else:
             frames = generate(*args, device=self.device, graph=self.graph, **kw)
-        return self._postprocess(frames.cpu().numpy(), output_type)
+        with span("posetraj/output"):
+            return self._postprocess(frames.cpu().numpy(), output_type)
 
     def _call_mesh(self, pcfg, image, control, noises, time_ids, sched, camera_cond, bbox, rot_id, output_type):
         """A batched call over the mesh: the split ControlNet leaves
@@ -485,7 +521,7 @@ class SVDControlNetPipeline:
             # Quirk Q7 reads the whole CFG batch's CLIP context: each rank's
             # CLIP rows (computed here and again inside generate(), a small
             # encode) gathered over "data" into buffers the graph reads.
-            with torch.inference_mode():
+            with torch.inference_mode(), span("posetraj/clip", device=self.device):
                 clip = encode_image_clip(self.params, self.bundle, _as_tensor(image, self.device), self.compute_dtype)
             ctx = gather_batch_rows(self.mesh, clip, groups=2)
             if self._rows is None or self._rows.table.shape != ctx.table.shape:

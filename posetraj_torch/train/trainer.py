@@ -50,7 +50,9 @@ On the card `Trainer.step` replays the micro-step (loss, backward and the
 accumulation) from one captured CUDA graph (`MicroStepGraph`), the
 counterpart of the JAX package's jitted step; the sync step's clip, AdamW
 and EMA run eagerly, with foreach ops. `Trainer.step_eager` and the CPU run
-the same micro-step from the host.
+the same micro-step from the host. While a torch profiler records, a
+micro-step's prepare, load, launch and sync are spans and counters of
+utils/profiling.py (posetraj/micro_step and below).
 
 Under a mesh (`Trainer(mesh=)`, one process a device) the batch is the
 global one: each rank computes its data coordinate's rows, with its rows
@@ -88,6 +90,7 @@ from posetraj_torch.ops.resize import resize_antialias
 from posetraj_torch.parallel.mesh import (BatchRows, batch_sharding, gather_batch_rows, global_batch_rows,
                                           param_shardings)
 from posetraj_torch.pipeline.svd_controlnet import resolve_kernels
+from posetraj_torch.utils.profiling import count, span
 
 
 def encode_image_clip_train(params: Dict, bundle, frame0_m11: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -471,7 +474,9 @@ def advance(state: TrainState, tcfg: TrainConfig, mesh=None) -> None:
     its window with sync_step."""
     state.step += 1
     if state.step % tcfg.gradient_accumulation_steps == 0:
-        sync_step(state, tcfg, mesh)
+        with span("posetraj/train/sync", device=_grad_acc(state, tcfg)[0].device):
+            count("opt_steps")
+            sync_step(state, tcfg, mesh)
 
 
 def apply_micro_grads(state: TrainState, tcfg: TrainConfig, grads) -> None:
@@ -565,12 +570,15 @@ class MicroStepGraph:
         from posetraj_torch.ops import _native, groupnorm
 
         _grad_acc(trainer.state, trainer.tcfg)
-        ready = self.load(trainer, batch, randoms)
+        with span("posetraj/train/load"):
+            ready = self.load(trainer, batch, randoms)
         step = lambda: micro_step(trainer.state, trainer.frozen_params, trainer.bundle, trainer.tcfg,
                                   self.buffers["batch"], self.buffers["randoms"], trainer.compute_dtype)
         if ready:
-            self._graph.replay()
-            _native.add_launches(self._per_replay)
+            with span("posetraj/train/launch"):
+                self._graph.replay()
+                _native.add_launches(self._per_replay)
+            count("train.replays")
             return {k: v.clone() for k, v in self._outputs.items()}
         stream = torch.cuda.Stream(device=trainer.device)
         stream.wait_stream(torch.cuda.current_stream())
@@ -704,15 +712,19 @@ class Trainer:
         (a loader's slice for its data coordinate), not the global batch."""
         if self.device.type != "cuda":
             return self.step_eager(batch, local_rows)
-        with use_kernels(self.bundle.kernels):
-            batch, randoms = self._prepare(batch, local_rows)
+        with span("posetraj/micro_step"), use_kernels(self.bundle.kernels):
+            count("micro_steps")
+            with span("posetraj/train/prepare"):
+                batch, randoms = self._prepare(batch, local_rows)
             return self._advance(self.graph.run(self, batch, randoms))
 
     def step_eager(self, batch: Dict, local_rows: bool = False) -> Dict[str, torch.Tensor]:
         """One micro-step issued from the host: the reference the graph is
         held against."""
-        with use_kernels(self.bundle.kernels):
-            batch, randoms = self._prepare(batch, local_rows)
+        with span("posetraj/micro_step"), use_kernels(self.bundle.kernels):
+            count("micro_steps")
+            with span("posetraj/train/prepare"):
+                batch, randoms = self._prepare(batch, local_rows)
             return self._advance(micro_step(self.state, self.frozen_params, self.bundle, self.tcfg, batch, randoms,
                                             self.compute_dtype))
 

@@ -43,8 +43,12 @@ is bit for bit the unsharded Trainer. tools/kernel_sweep replays one
 recorded instance of each kernel (and kernels 5 and 6 on instances made by
 hand) at phase 2's tolerances; utils.StageTimer's CUDA-event stages sum to
 between 90% and 100% of the synchronised wall time of GPU-bound work.
+The program's spans and counters under torch.profiler count the graphs'
+replays and time their device spans; chip_smoke's profiles count kernels,
+not the spans' mirrors on the device's timeline.
 """
 
+import collections
 import math
 
 import pytest
@@ -1310,3 +1314,81 @@ def test_cuda_stage_timer_against_synchronized_wall():
     total = sum(st.values())
     assert set(st) == {"a", "b"} and timer.counts["a"] == 2 and st["a"] > st["b"] > 0
     assert 0.9 * wall <= total <= wall, (total, wall)
+
+
+@pytest.mark.cuda
+def test_cuda_spans_and_counters():
+    """The program's spans and counters on the card (utils/profiling.py; the
+    CPU's side is tests/test_torch_tracing.py): two requests through one
+    ModelBundle.tiny() pipeline, 3 steps, and four micro-steps of a trainer
+    (accumulation 2) under torch.profiler, from nothing built: the first
+    request and micro-step capture, the rest replay. Each device span's
+    CUDA-event time is positive, and a request's sum to no more than its
+    host time. CPU activity only: the captures run under the profiler."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline, init_params
+    from posetraj_torch.utils import profiling
+
+    bundle = ModelBundle.tiny()
+    pipe = SVDControlNetPipeline(init_params(bundle, seed=3), bundle)
+    trainer = _trainer(gradient_accumulation_steps=2)
+    image, control = _tiny_request(4)
+    timer = profiling.TIMER
+    timer.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for seed in (1, 2):
+            pipe(image, control, height=64, width=64, num_frames=2, num_inference_steps=3, seed=seed)
+        for i in range(4):
+            float(trainer.step(_train_batch(i))["loss"])
+    spans = timer.record()
+    # The capture's eager step: one of the first request's, one micro-step not replayed.
+    assert dict(timer.counts) == {"requests": 2, "denoise.eager_steps": 1, "denoise.replays": 2 + 3,
+                                  "micro_steps": 4, "train.replays": 3, "opt_steps": 2}
+    assert collections.Counter(s.name for s in spans) == {
+        "posetraj/request": 2, "posetraj/prepare": 4, "posetraj/clip": 2, "posetraj/vae_encode": 2, "posetraj/hint": 2,
+        "posetraj/denoise/load": 2, "posetraj/denoise/replay": 2, "posetraj/decode": 2, "posetraj/output": 2,
+        "posetraj/micro_step": 4, "posetraj/train/prepare": 4, "posetraj/train/load": 4, "posetraj/train/launch": 3,
+        "posetraj/train/sync": 2}
+    device = [s for s in spans if s.device_ms is not None]
+    assert {s.name for s in device} == {"posetraj/clip", "posetraj/vae_encode", "posetraj/hint",
+                                        "posetraj/denoise/replay", "posetraj/decode", "posetraj/train/sync"}
+    assert all(s.device_ms > 0 for s in device)
+    for root in (s for s in timer.spans if s.name == "posetraj/request"):
+        inside = sum(s.device_ms for s in device if s.id == root.id)
+        assert 0 < inside <= (root.end_ns - root.start_ns) / 1e6
+    timer.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_profile_counts_kernels_not_spans():
+    """chip_smoke's profiles under the program's spans: a request whose
+    denoise replays its captured graph and a replayed Trainer.step, each
+    under torch.profiler with CUDA activity. The spans leave mirrors (user
+    annotations) on the device's timeline; chip_smoke.device_kernels, which
+    profile_step counts, holds none of them, and profile_step's summed
+    kernel time stays within the step's wall time."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from posetraj_torch.pipeline import ModelBundle, SVDControlNetPipeline, init_params
+
+    bundle = ModelBundle.tiny()
+    pipe = SVDControlNetPipeline(init_params(bundle, seed=3), bundle)
+    trainer = _trainer(gradient_accumulation_steps=2)
+    image, control = _tiny_request(5)
+    request = lambda: pipe(image, control, height=64, width=64, num_frames=2, num_inference_steps=3, seed=1)
+    step = lambda: float(trainer.step(_train_batch(0))["loss"])
+    request(), step(), step()  # both graphs captured
+    for fn in (request, step):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        cuda = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert any(ev.is_user_annotation and ev.name.startswith("posetraj/") for ev in cuda)
+        counted = [ev.name for ev in chip_smoke.device_kernels(torch, prof)]
+        assert counted and not any(n.startswith("posetraj/") for n in counted), counted
+        wall_ms, groups = chip_smoke.profile_step(torch, fn)
+        assert 0 < sum(ms for ms, _ in groups.values()) <= wall_ms, (groups, wall_ms)
